@@ -1,0 +1,498 @@
+"""The pluggable wire-compressor stack — transport-independent
+encode/decode between the scheduler and any transport.
+
+``WireCodec`` composes per-message-class stages: WEIGHTS (kernel
+shards), ACTS (activations: the x broadcast, row strips, y returns) and
+GRADS (gradient slices out, ``(dX, dW)`` returns back).  Available
+stages:
+
+- ``fp32`` — no narrowing, but float64 arrays are still normalized to
+  float32 so the uncompressed wire is comparable with every codec
+  (nothing in the protocol computes in double precision).
+- ``fp16`` / ``bf16`` — the 2-byte narrowing codecs (PR 3).
+- ``int8`` — symmetric per-tensor absmax quantization: a tensor ships
+  as its int8 values plus one float scale (``QuantArray``), 4x fewer
+  bytes than fp32.
+- ``topk:<frac>`` (grads only) — top-k sparsification of the
+  master->slave gradient slices: only the largest ``frac`` of entries
+  ship (``SparseGrad`` indices+values), and the master accumulates the
+  dropped mass per destination as ERROR FEEDBACK, re-injecting it into
+  that layer's next gradient so training stays convergent (Deep
+  Gradient Compression, arXiv:1712.01887).
+
+Every stage decodes back to float32 on the read side — only the wire
+narrows.  ``wire_nbytes`` defines the repo's canonical byte accounting
+for a message: arrays count their (encoded) buffer size, containers
+recurse (dict KEYS count like any other scalar token), and every other
+token costs 8 bytes (one double, the paper's protocol scalar).  All
+transports count with the SAME function, so ``comm_bytes`` is
+comparable between the in-process emulation, a real TCP wire and the
+shared-memory rings.
+
+``WeightRef`` is the versioned weight-broadcast cache's wire token: the
+weight slot of an op may carry ``WeightRef(key, version, w)`` to prime
+a slave's cache, or ``WeightRef(key, version, None)`` — ~24 bytes — to
+say "use what you already hold" (see ``protocol.slave_loop`` /
+``HeteroCluster._wire_weights``).
+
+Import-light on purpose (numpy only): TCP/shm slave subprocesses import
+this module before any heavy framework lands.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+MESSAGE_CLASSES = ("weights", "acts", "grads")
+
+#: master->slave op grammar: which message class each payload slot is.
+#: ("w" = the weight slot, which may be an ndarray, None, or WeightRef;
+#: None = scalar slot, never encoded.)  Kept here, below protocol.py,
+#: so the codec never imports upward.
+_DOWN_SLOTS = {
+    "conv": ("acts", "w"),
+    "sconv": ("acts", "w", None, None),
+    "bwd": ("acts", "w", "grads"),
+    "sbwd": ("acts", "w", "grads", None, None),
+}
+
+_FLOATS = (np.float32, np.float64)
+
+
+def resolve_wire_dtype(name: Optional[str]) -> Optional[np.dtype]:
+    """Map a wire-dtype name to the numpy dtype arrays are encoded to on
+    the wire; ``None``/``"fp32"`` means no narrowing (the seed wire)."""
+    if name is None or name in ("fp32", "float32"):
+        return None
+    if name in ("fp16", "float16"):
+        return np.dtype(np.float16)
+    if name in ("bf16", "bfloat16"):
+        try:
+            import ml_dtypes
+        except ImportError as e:  # pragma: no cover - ml_dtypes is optional
+            raise ValueError(
+                "wire_dtype='bf16' needs the ml_dtypes package"
+            ) from e
+        return np.dtype(ml_dtypes.bfloat16)
+    raise ValueError(
+        f"unknown wire_dtype {name!r}; use None/'fp32', 'fp16' or 'bf16'"
+    )
+
+
+def wire_dtype_name(dtype: Optional[np.dtype]) -> Optional[str]:
+    """Inverse of ``resolve_wire_dtype`` — for shipping the codec choice
+    to a slave subprocess on its command line."""
+    if dtype is None:
+        return None
+    if dtype == np.dtype(np.float16):
+        return "fp16"
+    return "bf16"
+
+
+def encode(obj, wire_dtype: np.dtype):
+    """Compact float arrays to the wire dtype (recursive, legacy
+    single-stage API — ``WireCodec`` is the grammar-aware stack)."""
+    if isinstance(obj, np.ndarray) and obj.dtype in _FLOATS:
+        return obj.astype(wire_dtype)
+    if isinstance(obj, tuple):
+        return tuple(encode(o, wire_dtype) for o in obj)
+    if isinstance(obj, list):
+        return [encode(o, wire_dtype) for o in obj]
+    if isinstance(obj, dict):
+        return {k: encode(v, wire_dtype) for k, v in obj.items()}
+    return obj
+
+
+def decode(obj, wire_dtype: np.dtype):
+    """Widen wire-dtype arrays back to float32 at the read side (legacy
+    single-stage API — ``WireCodec.decode`` handles the full stack)."""
+    if isinstance(obj, np.ndarray) and obj.dtype == wire_dtype:
+        return obj.astype(np.float32)
+    if isinstance(obj, tuple):
+        return tuple(decode(o, wire_dtype) for o in obj)
+    if isinstance(obj, list):
+        return [decode(o, wire_dtype) for o in obj]
+    if isinstance(obj, dict):
+        return {k: decode(v, wire_dtype) for k, v in obj.items()}
+    return obj
+
+
+class QuantArray:
+    """An int8-quantized float tensor on the wire: the int8 values and
+    ONE symmetric per-tensor scale (``absmax/127``).  Decodes to
+    ``q.astype(float32) * scale``; costs ``q.nbytes + 8`` canonical
+    bytes (the scale is one protocol scalar)."""
+
+    __slots__ = ("q", "scale")
+
+    def __init__(self, q: np.ndarray, scale: float):
+        self.q = q
+        self.scale = scale
+
+
+class SparseGrad:
+    """A top-k sparsified gradient on the wire: flat ``idx`` (int32),
+    the surviving ``vals`` (float32) and the dense ``shape`` to scatter
+    back into.  Decodes to a dense float32 tensor of zeros with
+    ``vals`` at ``idx``; costs ``idx.nbytes + vals.nbytes + 8``."""
+
+    __slots__ = ("idx", "vals", "shape")
+
+    def __init__(self, idx: np.ndarray, vals: np.ndarray, shape):
+        self.idx = idx
+        self.vals = vals
+        self.shape = tuple(shape)
+
+
+class WeightRef:
+    """The versioned weight-cache token that rides an op's weight slot.
+
+    ``w`` is the full (encoded) kernel when the master primes or
+    refreshes the slave's cache, or ``None`` when the slave already
+    holds ``(key, version)`` — then the token costs ~24 bytes instead
+    of the kernel re-broadcast.  The slave resolves it in
+    ``protocol.slave_loop``; a miss or version mismatch is a master
+    bug and raises (shipped back as ``SlaveError``)."""
+
+    __slots__ = ("key", "version", "w")
+
+    def __init__(self, key, version: int, w):
+        self.key = key
+        self.version = int(version)
+        self.w = w
+
+
+def map_arrays(obj, fn, leaf=np.ndarray):
+    """Rebuild ``obj`` with ``fn`` applied to every ``leaf`` instance,
+    descending through tuples/lists/dicts AND the codec's own marker
+    classes (``QuantArray``/``SparseGrad``/``WeightRef``) — the one
+    traversal both the codec stages and the shm segment packer use."""
+    if isinstance(obj, leaf):
+        return fn(obj)
+    if isinstance(obj, tuple):
+        return tuple(map_arrays(o, fn, leaf) for o in obj)
+    if isinstance(obj, list):
+        return [map_arrays(o, fn, leaf) for o in obj]
+    if isinstance(obj, dict):
+        return {k: map_arrays(v, fn, leaf) for k, v in obj.items()}
+    if isinstance(obj, QuantArray):
+        return QuantArray(map_arrays(obj.q, fn, leaf), obj.scale)
+    if isinstance(obj, SparseGrad):
+        return SparseGrad(
+            map_arrays(obj.idx, fn, leaf),
+            map_arrays(obj.vals, fn, leaf),
+            obj.shape,
+        )
+    if isinstance(obj, WeightRef):
+        if obj.w is None:
+            return obj
+        return WeightRef(obj.key, obj.version, map_arrays(obj.w, fn, leaf))
+    return obj
+
+
+def wire_nbytes(obj) -> int:
+    """Canonical bytes-on-the-wire of a message — called AFTER encoding,
+    so counters and bandwidth emulation see the codec's compacted size.
+    Dict keys count at the 8-byte scalar rate like every other
+    non-array token."""
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, (tuple, list)):
+        return sum(wire_nbytes(o) for o in obj)
+    if isinstance(obj, dict):
+        return sum(
+            wire_nbytes(k) + wire_nbytes(v) for k, v in obj.items()
+        )
+    if isinstance(obj, QuantArray):
+        return obj.q.nbytes + 8  # values + one scale scalar
+    if isinstance(obj, SparseGrad):
+        return obj.idx.nbytes + obj.vals.nbytes + 8  # + shape token
+    if isinstance(obj, WeightRef):
+        body = 0 if obj.w is None else wire_nbytes(obj.w)
+        return wire_nbytes(obj.key) + 8 + body  # key + version + kernel
+    return 8  # flags / scalars, one double in the paper's protocol
+
+
+def _quant_int8(a: np.ndarray) -> QuantArray:
+    """Symmetric per-tensor absmax int8 quantization of a float array."""
+    a = np.asarray(a, np.float32)
+    amax = float(np.max(np.abs(a))) if a.size else 0.0
+    scale = amax / 127.0 if amax > 0.0 else 1.0
+    q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+    return QuantArray(q, scale)
+
+
+def _dequant_int8(qa: QuantArray) -> np.ndarray:
+    """Decode ``QuantArray`` back to float32."""
+    return qa.q.astype(np.float32) * np.float32(qa.scale)
+
+
+def _sparsify_topk(a: np.ndarray, frac: float) -> Optional[SparseGrad]:
+    """Keep the largest-|.|  ``frac`` of ``a``'s entries; ``None`` when
+    the tensor is too small for sparsification to pay (ship dense)."""
+    flat = np.asarray(a, np.float32).ravel()
+    k = max(1, int(round(frac * flat.size)))
+    if 2 * k >= flat.size:  # idx+val = 8B/entry vs 4B dense: not worth it
+        return None
+    idx = np.argpartition(np.abs(flat), flat.size - k)[flat.size - k:]
+    idx = idx.astype(np.int32)
+    return SparseGrad(idx, flat[idx], a.shape)
+
+
+def _densify(sp: SparseGrad) -> np.ndarray:
+    """Scatter a ``SparseGrad`` back into its dense float32 tensor."""
+    out = np.zeros(int(np.prod(sp.shape)), np.float32)
+    out[sp.idx] = sp.vals
+    return out.reshape(sp.shape)
+
+
+def _parse_stage(name: str):
+    """One stage spec token -> ``None`` (fp32), a narrow np.dtype, or
+    the ``"int8"`` marker.  ``topk`` is handled by the spec parser (it
+    is only legal for the grads class)."""
+    name = name.strip().lower()
+    if name in ("", "fp32", "float32", "none"):
+        return None
+    if name in ("fp16", "float16", "bf16", "bfloat16"):
+        return resolve_wire_dtype(name)
+    if name == "int8":
+        return "int8"
+    raise ValueError(
+        f"unknown codec stage {name!r}; use fp32, fp16, bf16, int8 "
+        f"or (grads only) topk:<frac>"
+    )
+
+
+def _stage_name(stage) -> str:
+    """Inverse of ``_parse_stage`` for the canonical spec string."""
+    if stage is None:
+        return "fp32"
+    if stage == "int8":
+        return "int8"
+    return wire_dtype_name(stage)
+
+
+def _stage_itemsize(stage) -> float:
+    """Planner-visible bytes per float element a stage ships."""
+    if stage is None:
+        return 4.0
+    if stage == "int8":
+        return 1.0
+    return float(stage.itemsize)
+
+
+class WireCodec:
+    """The per-link compressor stack: one stage per message class, plus
+    optional top-k sparsification (with master-side error feedback) of
+    the master->slave gradient slices.
+
+    Built from a spec string (``WireCodec.from_spec``): a single stage
+    name applies to all three classes (``"int8"``), or per-class pairs
+    select independently (``"weights=fp16,acts=fp16,grads=topk:0.05"``).
+    One instance per transport link — the error-feedback residuals are
+    per-destination state.  ``encode_down`` classifies master->slave
+    messages by the op grammar, ``encode_up`` classifies slave results
+    by shape (a bare array is an activation, an array pair is
+    ``(dX, dW)``), ``decode`` is marker-driven and direction-free.
+    Heartbeats, probes, pings, hellos and errors pass through
+    untouched — liveness and bandwidth measurement must not be skewed
+    by compression."""
+
+    def __init__(self, weights=None, acts=None, grads=None,
+                 grad_topk: Optional[float] = None):
+        self.weights = weights
+        self.acts = acts
+        self.grads = grads
+        if grad_topk is not None and not 0.0 < grad_topk < 1.0:
+            raise ValueError(f"topk fraction must be in (0, 1): {grad_topk}")
+        self.grad_topk = grad_topk
+        self._ef: Dict[Tuple, np.ndarray] = {}  # error-feedback residuals
+        self._narrow = tuple(
+            {s for s in (weights, acts, grads) if isinstance(s, np.dtype)}
+        )
+
+    # -- construction ------------------------------------------------
+
+    @classmethod
+    def from_wire_dtype(cls, wire_dtype) -> "WireCodec":
+        """The legacy single-dtype wire as a stack: every class narrows
+        to ``wire_dtype`` (or just fp32-normalizes when ``None``)."""
+        if isinstance(wire_dtype, str):
+            wire_dtype = resolve_wire_dtype(wire_dtype)
+        return cls(weights=wire_dtype, acts=wire_dtype, grads=wire_dtype)
+
+    @classmethod
+    def from_spec(cls, spec: Optional[str], wire_dtype=None) -> "WireCodec":
+        """Parse a ``--wire-codec`` spec; ``None`` falls back to the
+        single-dtype wire (``wire_dtype``, also possibly ``None``)."""
+        if spec is None or not spec.strip():
+            return cls.from_wire_dtype(wire_dtype)
+        parts = [p.strip() for p in spec.split(",") if p.strip()]
+        if len(parts) == 1 and "=" not in parts[0]:
+            stage = _parse_stage(parts[0])
+            return cls(weights=stage, acts=stage, grads=stage)
+        stages: Dict[str, object] = {}
+        topk = None
+        for part in parts:
+            if "=" not in part:
+                raise ValueError(
+                    f"bad wire_codec entry {part!r}: expected class=stage"
+                )
+            k, v = (s.strip().lower() for s in part.split("=", 1))
+            if k not in MESSAGE_CLASSES:
+                raise ValueError(
+                    f"unknown message class {k!r}; use one of "
+                    f"{MESSAGE_CLASSES}"
+                )
+            if k in stages:
+                raise ValueError(f"duplicate wire_codec class {k!r}")
+            if v.startswith("topk:"):
+                if k != "grads":
+                    raise ValueError("topk is only valid for grads")
+                topk = float(v.split(":", 1)[1])
+                stages[k] = None  # sparse values ship as float32
+            else:
+                stages[k] = _parse_stage(v)
+        return cls(
+            weights=stages.get("weights"),
+            acts=stages.get("acts"),
+            grads=stages.get("grads"),
+            grad_topk=topk,
+        )
+
+    @property
+    def spec(self) -> Optional[str]:
+        """Canonical spec string (CLI round-trippable); ``None`` when
+        the stack is the plain fp32 wire."""
+        g = (
+            f"topk:{self.grad_topk:g}" if self.grad_topk is not None
+            else _stage_name(self.grads)
+        )
+        names = (_stage_name(self.weights), _stage_name(self.acts), g)
+        if names == ("fp32", "fp32", "fp32"):
+            return None
+        if names[0] == names[1] == names[2]:
+            return names[0]
+        return f"weights={names[0]},acts={names[1]},grads={names[2]}"
+
+    def itemsize(self, message_class: str) -> float:
+        """Planner-visible wire bytes per float element for one message
+        class.  For sparsified grads this is the EFFECTIVE rate (frac
+        of entries at 8 B each: int32 index + float32 value) — an
+        approximation the Eq. 1 predictor folds into its wire terms."""
+        stage = getattr(self, message_class)
+        if message_class == "grads" and self.grad_topk is not None:
+            return min(_stage_itemsize(stage), 8.0 * self.grad_topk)
+        return _stage_itemsize(stage)
+
+    # -- stages ------------------------------------------------------
+
+    def _stage_arr(self, a, stage):
+        """Apply one stage to one leaf array (non-float leaves pass)."""
+        if not isinstance(a, np.ndarray) or a.dtype not in _FLOATS:
+            return a
+        if stage == "int8":
+            return _quant_int8(a)
+        if stage is None:
+            return a.astype(np.float32) if a.dtype == np.float64 else a
+        return a.astype(stage)
+
+    def _apply(self, obj, stage):
+        """One stage over a whole subtree."""
+        return map_arrays(obj, lambda a: self._stage_arr(a, stage))
+
+    def _weight_slot(self, w):
+        """Encode an op's weight slot: raw kernel, ``None`` (the legacy
+        per-op cache) or a ``WeightRef`` wrapping either."""
+        if w is None:
+            return None
+        if isinstance(w, WeightRef):
+            if w.w is None:
+                return w
+            return WeightRef(w.key, w.version, self._apply(w.w, self.weights))
+        return self._apply(w, self.weights)
+
+    def _grad_down(self, g, wkey):
+        """Encode one master->slave gradient slice: top-k with error
+        feedback when configured, else the dense grads stage."""
+        if self.grad_topk is None:
+            return self._apply(g, self.grads)
+        key = (wkey, tuple(np.shape(g)))
+        g_eff = np.asarray(g, np.float32)
+        resid = self._ef.get(key)
+        if resid is not None and resid.shape == g_eff.shape:
+            g_eff = g_eff + resid
+        sp = _sparsify_topk(g_eff, self.grad_topk)
+        if sp is None:  # too small to pay for indices: ship dense
+            self._ef.pop(key, None)
+            return self._apply(g_eff, self.grads)
+        self._ef[key] = g_eff - _densify(sp)
+        return sp
+
+    # -- message encode/decode ---------------------------------------
+
+    def encode_down(self, msg):
+        """Encode one master->slave message by the op grammar."""
+        if (
+            isinstance(msg, tuple) and len(msg) == 2
+            and isinstance(msg[0], str) and msg[0] in _DOWN_SLOTS
+            and isinstance(msg[1], tuple)
+        ):
+            op, payload = msg
+            slots = _DOWN_SLOTS[op]
+            if len(payload) == len(slots):
+                wkey = None
+                w_in = payload[slots.index("w")]
+                if isinstance(w_in, WeightRef):
+                    wkey = w_in.key
+                out = []
+                for slot, val in zip(slots, payload):
+                    if slot == "acts":
+                        out.append(self._apply(val, self.acts))
+                    elif slot == "w":
+                        out.append(self._weight_slot(val))
+                    elif slot == "grads":
+                        out.append(self._grad_down(val, wkey))
+                    else:
+                        out.append(val)
+                return (op, tuple(out))
+        if (
+            isinstance(msg, tuple) and len(msg) == 2
+            and isinstance(msg[0], str) and msg[0] == "ping"
+        ):
+            return msg  # bandwidth probes must measure the raw wire
+        return self._apply(msg, self.acts)
+
+    def encode_up(self, msg):
+        """Encode one slave->master result: an array pair is
+        ``(dX, dW)`` (grads class), anything else is activations."""
+        if (
+            isinstance(msg, tuple) and len(msg) == 2
+            and all(isinstance(o, np.ndarray) for o in msg)
+        ):
+            return tuple(self._apply(o, self.grads) for o in msg)
+        return self._apply(msg, self.acts)
+
+    def decode(self, obj):
+        """Widen/densify every encoded leaf back to float32 — marker
+        driven, so one decoder serves both directions."""
+        if isinstance(obj, QuantArray):
+            return _dequant_int8(obj)
+        if isinstance(obj, SparseGrad):
+            return _densify(obj)
+        if isinstance(obj, WeightRef):
+            if obj.w is None:
+                return obj
+            return WeightRef(obj.key, obj.version, self.decode(obj.w))
+        if isinstance(obj, np.ndarray):
+            if self._narrow and obj.dtype in self._narrow:
+                return obj.astype(np.float32)
+            return obj
+        if isinstance(obj, tuple):
+            return tuple(self.decode(o) for o in obj)
+        if isinstance(obj, list):
+            return [self.decode(o) for o in obj]
+        if isinstance(obj, dict):
+            return {k: self.decode(v) for k, v in obj.items()}
+        return obj

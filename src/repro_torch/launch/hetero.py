@@ -1,0 +1,319 @@
+"""Serve the paper's CNN over the heterogeneous cluster, on the card.
+
+The port's counterpart of ``repro/launch/hetero.py``.  This package has
+the serving lane (``--serve``): requests go through the continuous-
+batching ``ClusterServer`` (serve/server.py), the cross-batch
+``ServeChain`` pipeline (core/cluster/scheduler.py), and each device's
+conv backend (core/backends.py) — Eq. 1 probing and partitioning, the
+scatter/gather protocol and the CPU/GPU mix included:
+
+    PYTHONPATH=src python -m repro_torch.launch.hetero --serve \
+        --backends cuda,cuda,numpy --slowdowns 1,1,1 \
+        --c1 500 --c2 1500 --image-size 32 --requests 16 --max-batch 4
+
+``--device`` picks the default backend of every device not named by
+``--backends``: ``cuda`` (the default: the hand-written Hopper kernel)
+or ``cpu`` (``torch:cpu``, the plain PyTorch conv).  ``--device cuda``
+on a host without a card is an error, never a CPU run.
+
+The training modes of the JAX CLI (``--pipeline``, ``--train-pipeline``,
+``--groups``) need the backward kernels and the model port, which come
+in a later slice; here they exit with a message saying so.
+
+Both CLIs draw identical weights and requests from numpy's generator
+(``run_serve``'s ``seed``, 0 on the command line), so their served
+outputs can be compared.  The CLI
+always leaves through ``os._exit`` after flushing its output, so no
+native runtime thread can hang the interpreter at exit.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+
+from repro_torch.core.cluster.cluster import HeteroCluster
+from repro_torch.core.partitioner import workload_shares
+
+_TRAINING_LATER = (
+    "training (--pipeline, --train-pipeline, --groups) needs the dX/dW "
+    "kernels and the CNN model, which come in a later slice of the port; "
+    "this CLI serves (--serve)"
+)
+
+
+# the conv backend each device runs when ``backends`` names none
+DEVICE_BACKENDS = {"cuda": "cuda", "cpu": "torch:cpu"}
+
+
+def serve_inputs(seed: int, c1: int, c2: int, image_size: int, requests: int):
+    """The serve lane's weights and requests, drawn from one numpy
+    generator in the JAX lane's order: the two 5x5 conv kernels, the fc
+    matrix, then one (image_size, image_size, 3) image per request.
+    Returns ``(conv_kernels, fc, images)``."""
+    rng = np.random.default_rng(seed)
+    k = 5
+    weights = [
+        rng.standard_normal((k, k, 3, c1)).astype(np.float32) * 0.1,
+        rng.standard_normal((k, k, c1, c2)).astype(np.float32) * 0.1,
+    ]
+    feat = image_size // 4
+    fc = rng.standard_normal((feat * feat * c2, 10)).astype(np.float32) * 0.01
+    images = [
+        rng.standard_normal((image_size, image_size, 3)).astype(np.float32)
+        for _ in range(requests)
+    ]
+    return weights, fc, images
+
+
+def relu_pool(y: np.ndarray) -> np.ndarray:
+    """Master-only stage after each conv: ReLU + 2x2 max-pool (numpy —
+    the serve loop drives the cluster directly)."""
+    y = np.maximum(y, 0.0)
+    b, h, w, c = y.shape
+    return y.reshape(b, h // 2, 2, w // 2, 2, c).max(axis=(2, 4))
+
+
+def run_serve(
+    slowdowns,
+    backends=None,
+    *,
+    device: str = "cuda",
+    microbatches: int = 4,
+    c1: int = 8,
+    c2: int = 16,
+    requests: int = 20,
+    deadline_s=30.0,
+    max_batch: int = 4,
+    image_size: int = 16,
+    partition: str = "kernel",
+    wire_dtype=None,
+    wire_codec=None,
+    weight_cache: bool = True,
+    bandwidth_mbps=None,
+    transport: str = "inproc",
+    expected_slaves=None,
+    listen_host: str = "127.0.0.1",
+    listen_port: int = 0,
+    heartbeat_s=None,
+    seed: int = 0,
+):
+    """Serve ``requests`` synthetic conv-chain requests through a
+    ``ClusterServer`` (continuous batching over the pipelined cluster)
+    and report throughput + tail latency.
+
+    Returns ``(rec, outputs)``: the JSON-ready record — ``all_ok`` says
+    whether every request completed under its deadline, ``probe_s`` and
+    ``shares`` are the Eq. 1 inputs and outputs — and the served head
+    outputs in request order (None for a request that did not finish
+    ``ok``)."""
+    from repro_torch.serve.server import ClusterServer
+
+    if backends is None:
+        backends = [DEVICE_BACKENDS[device]] * len(slowdowns)
+    weights, fc, images = serve_inputs(seed, c1, c2, image_size, requests)
+
+    def _head(z):
+        return z.reshape(z.shape[0], -1) @ fc
+
+    cluster = HeteroCluster(
+        slowdowns, backends,
+        pipeline=True, microbatches=microbatches,
+        partition=partition, wire_dtype=wire_dtype,
+        wire_codec=wire_codec, weight_cache=weight_cache,
+        bandwidth_mbps=bandwidth_mbps, transport=transport,
+        expected_slaves=expected_slaves,
+        listen_host=listen_host, listen_port=listen_port,
+        heartbeat_s=heartbeat_s,
+    )
+    try:
+        probe = cluster.probe(image_size=image_size, in_channels=3,
+                              kernel_size=5, num_kernels=max(8, c1),
+                              batch=max_batch)
+        shares = workload_shares(probe)
+        print(f"serving: slowdowns={list(cluster.slowdowns)} "
+              f"backends={cluster.backends} transport={transport} "
+              f"max_batch={max_batch} deadline_s={deadline_s}")
+        print(f"probe times: {np.round(probe, 4).tolist()}")
+        print(f"Eq.1 shares: {np.round(shares, 3).tolist()} -> "
+              f"c1 kernels {cluster.shares_for(c1).tolist()} "
+              f"c2 kernels {cluster.shares_for(c2).tolist()}")
+        server = ClusterServer(
+            cluster, weights, between=[relu_pool, relu_pool], head=_head,
+            max_batch=max_batch, max_queue=max(2 * requests, 16),
+            default_deadline_s=deadline_s,
+        )
+        t0 = time.perf_counter()
+        with server:
+            futs = [server.submit(img) for img in images]
+            resps = [f.result(timeout=600.0) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+        statuses = sorted({r.status for r in resps})
+        all_ok = all(r.status == "ok" for r in resps)
+        rec = {
+            "mode": "serve",
+            "device": device,
+            "backends": list(cluster.backends),
+            "transport": transport,
+            "partition": partition,
+            "wire_codec": cluster._codec_cfg.spec,
+            "weight_cache": weight_cache,
+            "c1": c1,
+            "c2": c2,
+            "image_size": image_size,
+            "probe_s": [float(t) for t in probe],
+            "shares": [float(s) for s in shares],
+            "kernels_per_device": {
+                "c1": cluster.shares_for(c1).tolist(),
+                "c2": cluster.shares_for(c2).tolist(),
+            },
+            "requests": requests,
+            "max_batch": max_batch,
+            "deadline_s": deadline_s,
+            "statuses": statuses,
+            "all_ok": all_ok,
+            "retries": sum(r.retries for r in resps),
+            "failures": list(cluster.failures),
+            "wall_s": wall,
+            "throughput_rps": requests / wall,
+            "p50_ms": stats["p50_ms"],
+            "p99_ms": stats["p99_ms"],
+            "comm_mb": cluster.comm_bytes / 2 ** 20,
+            "timing": dataclasses.asdict(cluster.timing),
+        }
+        print(f"{requests} requests in {wall:.2f}s -> "
+              f"{rec['throughput_rps']:.1f} req/s  "
+              f"p50={stats['p50_ms']:.1f}ms p99={stats['p99_ms']:.1f}ms  "
+              f"statuses={statuses} retries={rec['retries']}")
+        return rec, [r.output for r in resps]
+    finally:
+        cluster.shutdown()
+
+
+def _clean_exit(code: int) -> None:
+    """Flush and leave through ``os._exit``: a process holding native
+    runtime threads (a CUDA context) cannot hang CPython finalization
+    if it skips finalization.  Everything user-visible (stdout/stderr,
+    --out JSONL) is already written and flushed by the time this runs,
+    so nothing is lost."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--slowdowns", default="1.0,1.5,3.0",
+                    help="comma list; device 0 is the master")
+    ap.add_argument("--backends", default=None,
+                    help="comma list of conv backends per device "
+                         "(cuda|torch[:cpu|:cuda]|numpy|sim); default: "
+                         "--device's backend everywhere")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the default backend of every device: cuda (the "
+                         "hand-written kernel; the default) or cpu "
+                         "(torch:cpu, the plain PyTorch conv)")
+    ap.add_argument("--serve", action="store_true",
+                    help="serve a stream of forward-pass requests through "
+                         "the continuous-batching ClusterServer; exits "
+                         "nonzero unless every request completes under "
+                         "deadline")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="training mode of the JAX CLI: not ported yet")
+    ap.add_argument("--train-pipeline", action="store_true",
+                    help="training mode of the JAX CLI: not ported yet")
+    ap.add_argument("--groups", default=None, metavar="GxM",
+                    help="two-tier training topology of the JAX CLI: not "
+                         "ported yet")
+    ap.add_argument("--partition", default="kernel",
+                    choices=["kernel", "spatial", "batch", "auto"],
+                    help="conv split axis: output channels (kernel, the "
+                         "paper), height strips + halo exchange (spatial), "
+                         "batch rows + replicated kernel (batch), or "
+                         "per-layer predicted-wall-clock pick (auto)")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["fp32", "fp16", "bf16"],
+                    help="compact wire codec at the socket boundary; "
+                         "master-side accumulation stays float32")
+    ap.add_argument("--wire-codec", default=None,
+                    help="full compressor stack, superseding --wire-dtype, "
+                         "e.g. 'fp16' or 'weights=fp16,acts=int8'")
+    ap.add_argument("--no-weight-cache", action="store_true",
+                    help="disable the versioned weight-broadcast cache")
+    ap.add_argument("--bandwidth-mbps", type=float, default=None,
+                    help="emulated master<->slave link speed; default: "
+                         "infinitely fast links")
+    ap.add_argument("--transport", default="inproc",
+                    choices=["inproc", "tcp", "shm"],
+                    help="the wire: in-process queues (threads), localhost "
+                         "TCP with one OS subprocess per slave, or shm "
+                         "rings (co-located subprocesses)")
+    ap.add_argument("--expected-slaves", type=int, default=None,
+                    help="wait for this many hand-launched slaves to join "
+                         "instead of spawning any (implies --transport tcp)")
+    ap.add_argument("--listen-host", default="127.0.0.1",
+                    help="TCP listener bind interface")
+    ap.add_argument("--listen-port", type=int, default=0,
+                    help="TCP listener port (0 = kernel-assigned)")
+    ap.add_argument("--heartbeat-s", type=float, default=None,
+                    help="slave liveness interval (tcp only)")
+    ap.add_argument("--requests", type=int, default=20,
+                    help="synthetic requests to serve")
+    ap.add_argument("--deadline-s", type=float, default=30.0,
+                    help="per-request deadline")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="dynamic-batching slot count")
+    ap.add_argument("--image-size", type=int, default=16,
+                    help="request image height/width")
+    ap.add_argument("--microbatches", type=int, default=4)
+    ap.add_argument("--c1", type=int, default=8)
+    ap.add_argument("--c2", type=int, default=16)
+    ap.add_argument("--out", default=None, help="append the record as JSONL")
+    args = ap.parse_args()
+
+    if args.pipeline or args.train_pipeline or args.groups or not args.serve:
+        raise SystemExit(_TRAINING_LATER)
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit(
+                "--device cuda (the default) needs a CUDA card and "
+                "torch.cuda.is_available() is False; pass --device cpu to "
+                "run the plain PyTorch conv on the CPU"
+            )
+    slowdowns = [float(s) for s in args.slowdowns.split(",")]
+    backends = args.backends.split(",") if args.backends else None
+    transport = "tcp" if args.expected_slaves is not None else args.transport
+    try:
+        rec, _ = run_serve(
+            slowdowns, backends, device=args.device,
+            microbatches=args.microbatches, c1=args.c1, c2=args.c2,
+            requests=args.requests, deadline_s=args.deadline_s,
+            max_batch=args.max_batch, image_size=args.image_size,
+            partition=args.partition, wire_dtype=args.wire_dtype,
+            wire_codec=args.wire_codec,
+            weight_cache=not args.no_weight_cache,
+            bandwidth_mbps=args.bandwidth_mbps, transport=transport,
+            expected_slaves=args.expected_slaves,
+            listen_host=args.listen_host, listen_port=args.listen_port,
+            heartbeat_s=args.heartbeat_s,
+        )
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    except BaseException:
+        traceback.print_exc()
+        _clean_exit(1)
+    _clean_exit(0 if rec["all_ok"] else 1)
+
+
+if __name__ == "__main__":
+    main()
