@@ -19,10 +19,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    ``cifar_cnn_500_1500`` over ``cuda,cuda,numpy``: 16 requests, every
    one ``ok``, 4 of them held against a single-device float64 chain on
    the card; the kernel's launch count is reset just before and read
-   just after, and must be non-zero;
+   just after, and must be non-zero.  A ``torch.profiler`` trace of the
+   card's activity over the run gives the kernel's own time in it and
+   the card's busy share;
 5. main-path shapes — the kernel against its plain version at every
-   shard shape the serve run gave it, timed; the kernels line sums
-   these times over the run's launches.
+   shard shape the serve run gave it, timed in isolation.  The kernels
+   line's ``ms`` is the traced kernel time of the serve run; its
+   ``plain_ms`` and ``library_ms`` are these isolated medians summed
+   over the run's launches, as ``isolated_ms`` is for the kernel.
 
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line
 (``{"kernels": [...]}``) and, last, ``{"ok": true, "device": ...}``.
@@ -106,6 +110,24 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def device_trace(prof, window_s: float, kernel: str) -> dict:
+    """The card's activity in a profiler trace: the named kernel's
+    launches and summed time, and the share of ``window_s`` in which
+    any kernel or copy ran (overlaps counted once)."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [e for e in dev if kernel in e.name]
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    return {"device_events": len(dev), "kernel_launches": len(ours),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in ours) / 1e3,
+            "busy_ms": busy_us / 1e3, "window_ms": window_s * 1e3,
+            "busy_share": busy_us / 1e6 / window_s}
+
+
 def check_shape(conv2d, conv2d_ref, dev, b, h, w, cin, cout, k, dtype, *, label):
     """Run the kernel and its plain version on one shape; fail on a
     mismatch.  Returns the JSON record of the shape."""
@@ -170,6 +192,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(SRC):
         fail(f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
@@ -227,13 +250,17 @@ def main() -> int:
 
     cuda_backend.conv = observed_conv
     try:
-        conv2d.launches = 0
-        rec, outputs = run_serve(
-            [1.0, 1.0, 1.0], backends, device="cuda", c1=c1, c2=c2,
-            image_size=image, requests=requests, max_batch=max_batch,
-            partition="kernel", deadline_s=600.0, seed=SEED,
-        )
-        launches = conv2d.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            conv2d.launches = 0
+            t_run = time.perf_counter()
+            rec, outputs = run_serve(
+                [1.0, 1.0, 1.0], backends, device="cuda", c1=c1, c2=c2,
+                image_size=image, requests=requests, max_batch=max_batch,
+                partition="kernel", deadline_s=600.0, seed=SEED,
+            )
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = conv2d.launches
     finally:
         del cuda_backend.conv
     if not rec["all_ok"]:
@@ -243,6 +270,10 @@ def main() -> int:
     if launches != sum(shard_shapes.values()):
         fail(f"serve: {launches} launches for {sum(shard_shapes.values())} "
              f"convs on the cuda devices")
+    trace = device_trace(prof, run_s, "conv2d_fwd_kernel")
+    if trace["kernel_launches"] != launches:
+        fail(f"serve: the trace holds {trace['kernel_launches']} kernel "
+             f"launches, the wrapper counted {launches}")
     weights, fc, images = serve_inputs(SEED, c1, c2, image, requests)
     n_check = 4
     x = torch.from_numpy(np.stack(images[:n_check])).to(dev, torch.float64)
@@ -264,7 +295,7 @@ def main() -> int:
           "statuses": rec["statuses"], "throughput_rps": rec["throughput_rps"],
           "p50_ms": rec["p50_ms"], "p99_ms": rec["p99_ms"], "wall_s": rec["wall_s"],
           "timing_s": rec["timing"],
-          "launches": launches,
+          "launches": launches, "run_s": run_s, "trace": trace,
           "launches_by_shape": [list(k) + [n] for k, n in sorted(shard_shapes.items())],
           "checked_outputs": n_check, "max_abs_err_vs_f64_chain": serve_err,
           "atol": SERVE_ATOL})
@@ -289,13 +320,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/conv2d.py:78",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in path_recs),
-        "ms": total("ms"),
+        "ms": trace["kernel_ms"],
         "plain_ms": total("plain_ms"),
         "bound_ms": path_bound_ms,
         "bound_by": path_bound_by,
         "library_ms": total("library_ms"),
-        "per": "all of the serve run's launches: each shape's median time "
-               "times its launch count, summed",
+        "isolated_ms": total("ms"),
+        "per": "all of the serve run's launches; ms: the profiler trace "
+               "of the serve run; plain_ms, library_ms, isolated_ms: each "
+               "shape's isolated median times its launch count, summed",
     }]
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):

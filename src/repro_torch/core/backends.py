@@ -327,9 +327,10 @@ class TorchBackend(ConvBackend):
     def conv_vjp(self, x, w, g):
         import torch
 
-        from repro_torch.kernels.ref import conv2d_ref
+        from repro_torch.kernels.ref import conv2d_ref, ieee_fp32_matmul
 
-        with torch.enable_grad():
+        # the backward's matmuls too run in IEEE float32 on the card
+        with torch.enable_grad(), ieee_fp32_matmul(self.device):
             xt, wt = self._tensor(x, True), self._tensor(w, True)
             dx, dw = torch.autograd.grad(
                 conv2d_ref(xt, wt), (xt, wt), self._tensor(g)

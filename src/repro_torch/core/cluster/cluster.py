@@ -98,11 +98,6 @@ from repro_torch.core.cluster.transport import (
 from repro_torch.core.partitioner import allocate_kernels, effective_times
 
 
-def _np_probe(*, slowdown: float = 1.0, **probe_kwargs) -> float:
-    """The paper's §4.1.1 probe on the numpy backend (seed behaviour)."""
-    return probe_conv_time("numpy", slowdown=slowdown, **probe_kwargs)
-
-
 def _src_pythonpath() -> str:
     """The import root of this package, prepended to a slave subprocess's
     PYTHONPATH so ``-m repro_torch.core.cluster.protocol`` resolves without an
@@ -119,7 +114,9 @@ class HeteroCluster:
     (1.0 = this host's full speed); slowdowns[0] applies to the master.
 
     ``backends[i]`` names device i's conv backend (core/backends.py);
-    defaults to ``numpy`` everywhere, the seed behaviour.
+    defaults to ``cuda`` everywhere, the hand-written kernel on the card
+    (no card: the constructor raises).  CPU devices are asked for by
+    name: ``numpy``, ``torch:cpu`` or ``sim``.
 
     ``pipeline=True`` enables the double-buffered microbatch protocol:
     ``conv_forward``/``conv_backward`` split the batch into up to
@@ -237,7 +234,7 @@ class HeteroCluster:
                 )
         self.slowdowns = list(slowdowns)
         if backends is None:
-            backends = ["numpy"] * len(self.slowdowns)
+            backends = ["cuda"] * len(self.slowdowns)
         assert len(backends) == len(self.slowdowns), "one backend per device"
         self.backends = list(backends)
         # resolve every LOCAL name NOW: an unknown backend must raise
@@ -332,8 +329,7 @@ class HeteroCluster:
         self._next_slave_id = 1
         self._registry: Dict[int, Transport] = {}  # every slave EVER, dead too
         # each member's hello metadata by device id ({} for in-proc
-        # threads, which have no handshake): an open dict — sub-masters
-        # ride a "group" entry through it without touching the grammar
+        # threads, which have no handshake): an open dict
         self.hello_meta: Dict[int, dict] = {}
         self.sockets: List[Transport] = []
         self.procs: List[Optional[subprocess.Popen]] = []
@@ -471,10 +467,8 @@ class HeteroCluster:
         return env
 
     def _slave_cmd(self, dev: int, slowdown: float, backend: str) -> list:
-        """The argv a spawned slave process runs — a seam subclasses
-        extend (the hierarchy appends ``--group-*`` flags to turn the
-        process into a sub-master).  The auth token is NOT here: it
-        rides the environment (argv shows in ps)."""
+        """The argv a spawned slave process runs.  The auth token is NOT
+        here: it rides the environment (argv shows in ps)."""
         # a listener bound to the wildcard interface is not a connect
         # target; local spawns dial loopback
         host = (
@@ -626,7 +620,7 @@ class HeteroCluster:
                 timeout_s=max(1.0, deadline - self._clock())
             )
             self.slowdowns.append(float(meta.get("slowdown", 1.0)))
-            self.backends.append(str(meta.get("backend", "numpy")))
+            self.backends.append(str(meta.get("backend", "cuda")))
             chan.reset_counters()
             self._add_slot(dev, chan, None, None)
             self.hello_meta[dev] = meta
@@ -656,7 +650,7 @@ class HeteroCluster:
     def admit(
         self,
         slowdown: float = 1.0,
-        backend: str = "numpy",
+        backend: str = "cuda",
         *,
         bandwidth_mbps: Optional[float] = None,
         spawn: bool = True,
@@ -725,7 +719,7 @@ class HeteroCluster:
                 spawn = False
             if not spawn:
                 slowdown = float(meta.get("slowdown", 1.0))
-                backend = str(meta.get("backend", "numpy"))
+                backend = str(meta.get("backend", "cuda"))
             chan.reset_counters()
             self.slowdowns.append(slowdown)
             self.backends.append(backend)

@@ -26,19 +26,17 @@ ships back as a ``SlaveError`` (the master re-raises it at the
 matching gather) so a broken backend fails loudly instead of hanging
 the protocol.
 
-Two serve loops share the grammar: ``slave_loop`` computes each op on
-ONE backend (a leaf device), while ``sub_master_loop`` computes it over
-a whole inner ``HeteroCluster`` — the two-tier hierarchy's middle node,
-a slave upward and a master downward.  The hierarchy module that
-spawns sub-master processes is not ported yet, so ``--group-*`` on the
-CLI below raises.
+``slave_loop`` computes each op on ONE backend (a leaf device).  The
+two-tier hierarchy's sub-master, which computes an op over a whole
+inner cluster, is not ported yet: ``--group-slowdowns`` on the CLI
+below is refused.
 
 Run as a module, this file IS the TCP slave process — spawned by the
 master on this host, or hand-launched on ANY host that can reach the
 master's listener:
 
     python -m repro_torch.core.cluster.protocol --host H --port P \
-        [--device I] [--slowdown 1.5] [--backend numpy] \
+        [--device I] [--slowdown 1.5] [--backend cuda] \
         [--transport tcp|shm] [--wire-dtype fp16] [--wire-codec SPEC] \
         [--heartbeat-s 0.5] \
         [--auth-env REPRO_CLUSTER_AUTH] [--connect-timeout-s 60]
@@ -53,9 +51,12 @@ take whatever slot the cluster assigns.  With ``--heartbeat-s`` it
 beats liveness frames from a side thread so a master with a heartbeat
 deadline can tell "busy convolving" from "dead".  It then serves ops
 until "trainOver" or EOF and leaves via ``os._exit`` so native runtime
-threads (a CUDA context) can never hang the interpreter at exit.  Imports stay
-numpy-light until the first op needs a compute backend, keeping
-subprocess spawn fast for numpy/sim slaves.
+threads (a CUDA context) can never hang the interpreter at exit.
+
+``--backend`` defaults to ``cuda``, the hand-written kernel on the card;
+the slave resolves it before it connects, so a host without a card
+refuses to join instead of failing its first op.  ``numpy``,
+``torch:cpu`` and ``sim`` run on the CPU when asked for.
 """
 from __future__ import annotations
 
@@ -192,114 +193,12 @@ def slave_loop(endpoint, slowdown: float, backend_name: str, device: int):
         endpoint.send(out)
 
 
-def sub_master_loop(endpoint, cluster, device: int):
-    """The TWO-TIER serve loop: Algorithm 2's grammar toward the root,
-    a full ``HeteroCluster`` master toward the group.  A sub-master is
-    a protocol node that answers the SAME wire ops as ``slave_loop``
-    but computes each one over its inner cluster — per-layer
-    kernel/spatial/batch/auto partitioning, pipelining, and the group's
-    own fault tolerance all live behind this seam, invisible to the
-    root except as capacity changes.
-
-    Op semantics at this tier:
-
-    * ``("probe", kw)`` re-probes every GROUP member and answers the
-      aggregate Eq. 1 time (``plans.group_aggregate_time``: member
-      compute rates sum) — the root prices the whole group as one
-      device, and a member lost inside the group shows up here as a
-      capacity drop the root re-plans on.
-    * ``("conv", ...)`` / ``("bwd", ...)`` run the scheduler's
-      ``group_forward`` / ``group_backward`` over the inner cluster —
-      zero-row slices from the root's batch plan short-circuit, and
-      the bwd answer is (dX rows, the group's FULL summed dW), the
-      term the root's exact all-reduce sums.
-    * ``("sconv", ...)`` / ``("sbwd", ...)`` fall back to the inner
-      MASTER's backend (strip ops don't decompose over batch groups);
-      a hierarchy root plans the batch axis, so these only arrive from
-      legacy drivers.
-    * ``"trainOver"`` / EOF shut the inner cluster down and return.
-
-    The weight slot resolves through the same per-op + versioned caches
-    as a leaf slave, so the root's ~24-byte ``WeightRef`` tokens work
-    unchanged one tier down."""
-    from repro_torch.core.backends import strip_conv, strip_conv_vjp
-    from repro_torch.core.cluster.plans import group_aggregate_time
-    from repro_torch.core.cluster.scheduler import group_backward, group_forward
-
-    cached_w = {}
-    wcache = {}
-
-    def ensure_probed():
-        # A root that pins its own probe_times never forwards ("probe",
-        # kw) down here, but the inner planner still needs member times
-        # before its first share split — self-probe once with the stock
-        # admit workload.
-        if cluster.probe_times is None:
-            cluster.probe(
-                image_size=16, in_channels=3, kernel_size=3,
-                num_kernels=8, batch=4, repeats=1,
-            )
-
-    try:
-        while True:
-            try:
-                msg = endpoint.recv()
-            except (EOFError, OSError):
-                return  # root gone: the group follows it down
-            if isinstance(msg, str) and msg == TRAIN_OVER:
-                return
-            op, payload = msg
-            if op == "ping":  # root bandwidth probe: echo, never forwarded
-                endpoint.send(payload)
-                continue
-            try:
-                if op == "probe":
-                    endpoint.send(group_aggregate_time(cluster.probe(**payload)))
-                    continue
-                if op == "conv":
-                    x, w = payload
-                    w = _resolve_weights(w, op, cached_w, wcache)
-                    ensure_probed()
-                    out = group_forward(cluster, x, w)
-                elif op == "bwd":
-                    x, w, g = payload
-                    w = _resolve_weights(w, op, cached_w, wcache)
-                    ensure_probed()
-                    out = group_backward(cluster, x, w, g)
-                elif op == "sconv":
-                    xh, w, pt, pb = payload
-                    w = _resolve_weights(w, op, cached_w, wcache)
-                    out = strip_conv(cluster._master_backend, xh, w, pt, pb)
-                elif op == "sbwd":
-                    xh, w, g, pt, pb = payload
-                    w = _resolve_weights(w, op, cached_w, wcache)
-                    out = strip_conv_vjp(
-                        cluster._master_backend, xh, w, g, pt, pb
-                    )
-                else:  # pragma: no cover
-                    raise ValueError(f"unknown op {op}")
-            except Exception:
-                endpoint.send(SlaveError(device, traceback.format_exc()))
-                continue
-            endpoint.send(out)
-    finally:
-        cluster.shutdown()
-
-
-def hello_frame(
-    device: int, backend: str, slowdown: float, extra: dict = None
-) -> tuple:
+def hello_frame(device: int, backend: str, slowdown: float) -> tuple:
     """The join handshake: requested device slot (-1 = let the master
     assign one) plus the metadata the master records for membership —
     what an externally-launched slave brings that a spawned one was
-    configured with.  ``extra`` extends the open meta dict without
-    touching the grammar: a sub-master adds ``{"group": {"size": n,
-    "bandwidth_mbps": min_internal}}`` so the root can fold the group's
-    internal bottleneck into its uplink pricing."""
-    meta = {"backend": backend, "slowdown": slowdown}
-    if extra:
-        meta.update(extra)
-    return ("hello", device, meta)
+    configured with."""
+    return ("hello", device, {"backend": backend, "slowdown": slowdown})
 
 
 def parse_hello(frame) -> Tuple[int, dict]:
@@ -335,7 +234,10 @@ def main(argv=None):
                          "master assign the next free one — what a "
                          "hand-launched remote slave should use")
     ap.add_argument("--slowdown", type=float, default=1.0)
-    ap.add_argument("--backend", default="numpy")
+    ap.add_argument("--backend", default="cuda",
+                    help="conv backend of this device: cuda (the default: "
+                         "the hand-written kernel on the card), torch:cpu, "
+                         "numpy or sim")
     ap.add_argument("--wire-dtype", default=None)
     ap.add_argument("--wire-codec", default=None,
                     help="compressor-stack spec, e.g. 'int8' or "
@@ -353,28 +255,21 @@ def main(argv=None):
                     help="keep retrying the connect for this long — a "
                          "hand-launched slave may legally start before "
                          "the master binds its listener")
-    # -- sub-master mode: this process is a whole GROUP -------------------
     ap.add_argument("--group-slowdowns", default=None,
-                    help="comma-separated slowdowns of the group's devices "
-                         "(first = this sub-master's own compute).  Setting "
-                         "this turns the process into a SUB-MASTER: a slave "
-                         "to the root on the wire above, a full "
-                         "HeteroCluster master to an inner in-proc group")
-    ap.add_argument("--group-backends", default=None,
-                    help="comma-separated backends of the group's devices "
-                         "(default: numpy for all)")
-    ap.add_argument("--group-partition", default="auto",
-                    help="the INNER per-layer partition axis "
-                         "(kernel|spatial|batch|auto)")
-    ap.add_argument("--group-microbatches", type=int, default=4)
-    ap.add_argument("--group-no-pipeline", action="store_true",
-                    help="disable the inner cluster's microbatch pipeline")
-    ap.add_argument("--group-bandwidth-mbps", type=float, default=None,
-                    help="emulated per-link bandwidth INSIDE the group")
-    ap.add_argument("--group-nic-mbps", type=float, default=None,
-                    help="emulated shared NIC for the sub-master's own "
-                         "in-proc links (see transport.SharedNIC)")
+                    help="sub-master mode of the two-tier hierarchy: not "
+                         "ported yet, refused")
     args = ap.parse_args(argv)
+    if args.group_slowdowns:
+        # core/cluster/hierarchy.py (the two-tier composition) has no
+        # counterpart in this package yet: refuse loudly rather than
+        # serve as a plain leaf under a root that expects a group.
+        raise SystemExit(
+            "hierarchy is not ported yet: --group-slowdowns (a sub-master "
+            "process) needs core/cluster/hierarchy.py"
+        )
+    from repro_torch.core.backends import get_backend
+
+    get_backend(args.backend)  # no card for ``cuda``: raise before joining
 
     token_hex = os.environ.get(args.auth_env)
     endpoint_cls = (
@@ -388,14 +283,6 @@ def main(argv=None):
     )
     code = 0
     try:
-        if args.group_slowdowns:
-            # core/cluster/hierarchy.py (the two-tier composition) has
-            # no counterpart in this package yet: refuse loudly rather
-            # than serve as a plain leaf under a root that expects a group.
-            raise NotImplementedError(
-                "hierarchy is not ported yet: --group-* flags (a sub-master "
-                "process) need core/cluster/hierarchy.py"
-            )
         endpoint.send(
             hello_frame(args.device, args.backend, args.slowdown)
         )

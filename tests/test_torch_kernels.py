@@ -23,7 +23,7 @@ from repro.core.cluster.protocol import conv_shard as jax_conv_shard
 from repro.kernels.conv2d import conv2d_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels.conv2d import conv2d
-from repro_torch.kernels.ref import conv2d_ref
+from repro_torch.kernels.ref import conv2d_ref, ieee_fp32_matmul
 
 DTYPES = {
     "float32": (jnp.float32, torch.float32, 2e-4),
@@ -114,3 +114,23 @@ def test_conv2d_ref_float64_stays_float64():
     np.testing.assert_allclose(
         got.numpy(), _pallas(x, wk, jnp.float32), atol=2e-4, rtol=0.05
     )
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_ieee_fp32_matmul_restores_the_tf32_flag(before):
+    """The plain version turns TF32 off on the card only while it runs:
+    the process-wide flag other callers see comes back as it was, after
+    nesting too."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = before
+    try:
+        with ieee_fp32_matmul(torch.device("cuda")):
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+            with ieee_fp32_matmul(torch.device("cuda")):
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+        with ieee_fp32_matmul(torch.device("cpu")):
+            assert torch.backends.cuda.matmul.allow_tf32 is before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

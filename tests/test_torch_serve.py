@@ -223,6 +223,45 @@ def test_cuda_backends_without_a_card_raise(name):
         HeteroCluster([1.0, 1.0], backends=["numpy", name])
 
 
+def _slave(*args, timeout=120):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.cluster.protocol",
+         "--host", "127.0.0.1", "--port", "9", "--connect-timeout-s", "1",
+         *args],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+    )
+
+
+@pytest.mark.parametrize("entry", ["cluster", "admit", "slave_cli"])
+def test_default_backend_is_the_card_and_refuses_without_one(entry):
+    """A cluster, a device admitted to it and a slave process all run
+    on the card unless asked for a CPU backend; without a card each
+    refuses, before any slave starts or a slave joins."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    if entry == "slave_cli":
+        r = _slave()
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+        return
+    if entry == "cluster":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            HeteroCluster([1.0, 1.0])
+        return
+    c = HeteroCluster([1.0], backends=["numpy"])
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            c.admit()
+        assert c.n_slaves == 0 and c.backends == ["numpy"]
+    finally:
+        c.shutdown()
+
+
+def test_slave_cli_refuses_sub_master_mode():
+    r = _slave("--backend", "numpy", "--group-slowdowns", "1,1")
+    assert r.returncode != 0 and "hierarchy is not ported yet" in r.stderr
+
+
 def test_torch_backend_conv_and_vjp_match_numpy():
     rng = np.random.default_rng(11)
     x = rng.standard_normal((2, 7, 9, 4)).astype(np.float32)
