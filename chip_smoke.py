@@ -1,38 +1,52 @@
-"""Quickest proof that the PyTorch/CUDA port builds, is right and serves
-on one NVIDIA card.
+"""Quickest proof that the PyTorch/CUDA port builds, is right, serves and
+trains on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (``{"phase": ...}``):
+Phases, each printing JSON lines (``{"phase": ...}``):
 
 1. device — the card's name, and ``nvidia-smi``'s name and power limit;
-2. build  — ``nvcc`` builds every kernel of the port from
-   ``src/repro_torch/kernels/csrc/`` (seconds, cache hit, ptxas report);
-3. kernel — the hand-written conv2d kernel against its plain PyTorch
-   version (``conv2d_ref``) on the card, on the shapes of
-   tests/test_kernels.py, the paper's C1 and C2 layers, a ragged and an
-   empty Cout and a 7-row strip, in fp32 and bf16; with median times of
-   the kernel, the plain version, ``F.conv2d`` (cuDNN, TF32 off: a
-   yardstick the port never calls), the backend's numpy round-trip
-   copies, and the kernel's bound;
-4. serve  — the port's ``run_serve`` on the paper's headline network
+2. build  — ``nvcc`` builds every kernel library of the port from
+   ``src/repro_torch/kernels/csrc/``, all sources at once (seconds, cache
+   hit, ptxas registers and spills);
+3. kernel — the forward conv K1 against its plain PyTorch version
+   (``conv2d_ref``) on the card, on the shapes of tests/test_kernels.py,
+   the paper's C1 and C2 layers, a ragged and an empty Cout and a 7-row
+   strip, in fp32 and bf16; with median times of the kernel, the plain
+   version, ``F.conv2d`` (cuDNN, TF32 off: a yardstick the port never
+   calls), the backend's numpy round-trip copies, and the kernel's bound;
+4. kernel_bwd — dX (K2) and dW (K3) against ``conv2d_dx_ref`` and
+   ``conv2d_dw_ref`` the same way, at the test sweep's shapes, C1 and C2
+   at batch 32, a ragged and an empty Cout, no pixels and a 7-row strip;
+   the yardsticks are ``torch.nn.grad.conv2d_input``/``conv2d_weight``.
+   K3 runs twice on C1 and must give the same bits;
+5. serve  — the port's ``run_serve`` on the paper's headline network
    ``cifar_cnn_500_1500`` over ``cuda,cuda,numpy``: 16 requests, every
    one ``ok``, 4 of them held against a single-device float64 chain on
-   the card; the kernel's launch count is reset just before and read
-   just after, and must be non-zero.  A ``torch.profiler`` trace of the
-   card's activity over the run gives the kernel's own time in it and
-   the card's busy share;
-5. main-path shapes — the kernel against its plain version at every
-   shard shape the serve run gave it, timed in isolation.  The kernels
-   line's ``ms`` is the traced kernel time of the serve run; its
-   ``plain_ms`` and ``library_ms`` are these isolated medians summed
-   over the run's launches, as ``isolated_ms`` is for the kernel.
+   the card, inside a ``torch.profiler`` trace of the card;
+6. main-path shapes (serve) — K1 against its plain version at every
+   shard shape the serve run gave it, timed in isolation;
+7. train — the port's ``run_hetero(train_pipeline=True)`` on the same
+   network at full width over ``cuda,cuda,numpy``: batch 32, 4
+   microbatches, 3 steps, inside a profiler trace.  Every loss finite;
+   the first step's loss and updated params equal one step taken from
+   the same params and batch on one device in float64 (``cnn_loss`` with
+   ``conv2d_ref``, autograd, SGD) to 1e-5 and 1e-4 (the later steps'
+   differences are printed); K1, K2 and K3 each launched, and each
+   wrapper's count equal to the trace's count of its kernel;
+8. train_autograd — one step of ``cnn_loss`` through
+   ``conv_fn_for_backend("cuda")`` (``Conv2dFunction``: K1, K2 and K3 on
+   one device), held against the first float64 step;
+9. main-path shapes (train) — K1, K2 and K3 at every shape the train run
+   gave them, against their plain versions, timed in isolation.
 
-Then, on lines of their own: the ``nvidia-smi`` line, the kernels line
-(``{"kernels": [...]}``) and, last, ``{"ok": true, "device": ...}``.
-Any mismatch or failure raises and exits non-zero; without a card, or
-without the rest of the repository beside this file, it exits non-zero
-before printing any result.
+Every wrapper's launch count is set to 0 just before a main-path run
+(serve, train) and read just after.  Then, on lines of their own: the
+``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
+last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
+and exits non-zero; without a card, or without the rest of the
+repository beside this file, it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -55,10 +70,20 @@ SRC = ROOT / "src"
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_S = 3.35e12
 # tests/test_kernels.py's tolerances: fp32 atol 2e-4, bf16 atol 5e-2,
-# both with rtol 0.05 (different summation orders over up to 12,500 terms)
+# both with rtol 0.05 (different summation orders over up to 37,500 terms)
 TOL = {torch.float32: (2e-4, 0.05), torch.bfloat16: (5e-2, 0.05)}
 SERVE_ATOL = 1e-3
+# tests/test_train_pipeline.py's tolerances for a train step against the
+# single-device step: every updated param, and the loss
+PARAM_ATOL, LOSS_ATOL = 1e-4, 1e-5
 SEED = 0
+# the wrappers' kernels by trace symbol: the first counts launches, all
+# of them count time (K3 reduces its pixel chunks in a second kernel)
+SYMBOLS = {
+    "conv2d_fwd": ("conv2d_fwd_kernel",),
+    "conv2d_dx": ("conv2d_dx_kernel",),
+    "conv2d_dw": ("conv2d_dw_kernel", "conv2d_dw_reduce_kernel"),
+}
 
 
 def emit(obj: dict) -> None:
@@ -95,12 +120,20 @@ def events_ms(fn, reps: int, rounds: int = 3) -> float:
     return statistics.median(per)
 
 
-def conv_work(b, h, w, cin, cout, k, dtype):
-    """(operations, bytes) of one SAME conv: each input read once, the
-    output written once."""
+def reps_for(flops: float) -> int:
+    return 5 if flops > 1e11 else 20 if flops > 5e9 else 50
+
+
+def conv_work(kind, b, h, w, cin, cout, k, dtype):
+    """(operations, bytes) of one SAME conv, or of its dX or dW: the
+    same 2*B*H*W*k*k*Cin*Cout operations; each input read once, the
+    output written once (dW in float32)."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     flops = 2.0 * b * h * w * k * k * cin * cout
-    nbytes = itemsize * (b * h * w * cin + k * k * cin * cout + b * h * w * cout)
+    x, wt, y = b * h * w * cin, k * k * cin * cout, b * h * w * cout
+    nbytes = {"conv2d_fwd": itemsize * (x + wt + y),
+              "conv2d_dx": itemsize * (y + wt + x),
+              "conv2d_dw": itemsize * (x + y) + 4 * wt}[kind]
     return flops, nbytes
 
 
@@ -110,71 +143,124 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
-def device_trace(prof, window_s: float, kernel: str) -> dict:
-    """The card's activity in a profiler trace: the named kernel's
-    launches and summed time, and the share of ``window_s`` in which
-    any kernel or copy ran (overlaps counted once)."""
+def device_trace(prof, window_s: float) -> dict:
+    """The card's activity in a profiler trace: each wrapper's kernel
+    launches and summed time (``SYMBOLS``), and the share of
+    ``window_s`` in which any kernel or copy ran (overlaps counted once)."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    ours = [e for e in dev if kernel in e.name]
+    kernels = {}
+    for name, syms in SYMBOLS.items():
+        ours = [e for e in dev if any(s in e.name for s in syms)]
+        kernels[name] = {
+            "launches": sum(syms[0] in e.name for e in ours),
+            "ms": sum(e.time_range.elapsed_us() for e in ours) / 1e3,
+        }
     busy_us, end = 0.0, float("-inf")
     for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if t1 > end:
             busy_us += t1 - max(t0, end)
             end = t1
-    return {"device_events": len(dev), "kernel_launches": len(ours),
-            "kernel_ms": sum(e.time_range.elapsed_us() for e in ours) / 1e3,
+    return {"device_events": len(dev), "kernels": kernels,
             "busy_ms": busy_us / 1e3, "window_ms": window_s * 1e3,
             "busy_share": busy_us / 1e6 / window_s}
 
 
-def check_shape(conv2d, conv2d_ref, dev, b, h, w, cin, cout, k, dtype, *, label):
-    """Run the kernel and its plain version on one shape; fail on a
-    mismatch.  Returns the JSON record of the shape."""
+def nchw(t):
+    return t.permute(0, 3, 1, 2).contiguous()
+
+
+def library_call(kind, x, w, g):
+    """A no-argument call of the one PyTorch function that computes what
+    the kernel does, on NCHW/OIHW copies (cuDNN, TF32 off): a yardstick
+    the port never calls."""
     import torch.nn.functional as F
 
+    pad = w.shape[0] // 2
+    xc, gc, wc = nchw(x), nchw(g), w.permute(3, 2, 0, 1).contiguous()
+    if kind == "conv2d_fwd":
+        return lambda: F.conv2d(xc, wc, padding=pad)
+    if kind == "conv2d_dx":
+        return lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=pad)
+    return lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=pad)
+
+
+class Kernels:
+    """The port's wrappers and their plain versions, by name, each
+    called as ``f(x, w, g)``."""
+
+    def __init__(self):
+        from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx
+        from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
+
+        self.wrapper = {"conv2d_fwd": conv2d, "conv2d_dx": conv2d_dx,
+                        "conv2d_dw": conv2d_dw}
+        self.conv2d_ref = conv2d_ref
+        self.calls = {  # (kernel, plain version)
+            "conv2d_fwd": (lambda x, w, g: conv2d(x, w),
+                           lambda x, w, g: conv2d_ref(x, w)),
+            "conv2d_dx": (lambda x, w, g: conv2d_dx(g, w),
+                          lambda x, w, g: conv2d_dx_ref(g, w)),
+            "conv2d_dw": (lambda x, w, g: conv2d_dw(x, g, w.shape[0], w.shape[1]),
+                          lambda x, w, g: conv2d_dw_ref(x, g, w.shape[0], w.shape[1])),
+        }
+
+
+def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
+                phase, copy=False):
+    """Run one kernel and its plain version on one shape; fail on a
+    mismatch.  Returns the JSON record of the shape, with median times
+    of the kernel, the plain version and the library yardstick."""
     rng = np.random.default_rng([SEED, b, h, w, cin, cout, k])
     xn = rng.standard_normal((b, h, w, cin)).astype(np.float32)
     wn = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
-    x = torch.from_numpy(xn).to(dev).to(dtype)
-    wt = torch.from_numpy(wn).to(dev).to(dtype)
-    before = conv2d.launches
-    got = conv2d(x, wt)
+    gn = rng.standard_normal((b, h, w, cout)).astype(np.float32)
+    x, wt, g = (torch.from_numpy(a).to(dev).to(dtype) for a in (xn, wn, gn))
+    run, plain = ks.calls[kind]
+    fn = ks.wrapper[kind]
+    before = fn.launches
+    got = run(x, wt, g)
     torch.cuda.synchronize()
-    want = conv2d_ref(x.float(), wt.float())
-    if tuple(got.shape) != (b, h, w, cout) or got.dtype != dtype:
-        fail(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
-    if cout == 0:
-        if conv2d.launches != before:
-            fail(f"{label}: an empty output launched the kernel")
+    # the plain version in float64: the error measured is the kernel's
+    want = plain(x.double(), wt.double(), g.double())
+    out_shape = {"conv2d_fwd": (b, h, w, cout), "conv2d_dx": (b, h, w, cin),
+                 "conv2d_dw": (k, k, cin, cout)}[kind]
+    out_dtype = torch.float32 if kind == "conv2d_dw" else dtype
+    if tuple(got.shape) != out_shape or got.dtype != out_dtype:
+        fail(f"{kind} {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    empty = got.numel() == 0 or b * h * w * cin * cout == 0
+    if empty:
+        if fn.launches != before:
+            fail(f"{kind} {label}: an empty case launched the kernel")
+        if got.numel() and bool(got.any()):
+            fail(f"{kind} {label}: an empty case gave non-zero values")
         err = 0.0
     else:
-        if not torch.isfinite(got.float()).all():
-            fail(f"{label}: non-finite output")
-        err = (got.float() - want).abs().max().item()
+        if not torch.isfinite(got).all():
+            fail(f"{kind} {label}: non-finite output")
+        err = (got.double() - want).abs().max().item()
         atol, rtol = TOL[dtype]
-        if not torch.allclose(got.float(), want, atol=atol, rtol=rtol):
-            fail(f"{label}: kernel vs conv2d_ref max abs err {err} "
-                 f"beyond atol {atol} rtol {rtol}")
-    flops, nbytes = conv_work(b, h, w, cin, cout, k, dtype)
+        if not torch.allclose(got.double(), want, atol=atol, rtol=rtol):
+            fail(f"{kind} {label}: kernel vs its plain version max abs err "
+                 f"{err} beyond atol {atol} rtol {rtol}")
+    flops, nbytes = conv_work(kind, b, h, w, cin, cout, k, dtype)
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     rec = {
-        "phase": "kernel", "case": label, "dtype": str(dtype).split(".")[-1],
+        "phase": phase, "kernel": kind, "case": label,
+        "dtype": str(dtype).split(".")[-1],
         "shape": {"x": [b, h, w, cin], "w": [k, k, cin, cout]},
         "max_abs_err": err, "atol": TOL[dtype][0], "rtol": TOL[dtype][1],
-        "ms": None, "plain_ms": None, "library_ms": None, "copy_ms": None,
+        "ms": None, "plain_ms": None, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes,
     }
-    if cout == 0:
+    if empty:
         return rec
-    reps = 20 if flops > 5e9 else 50
-    rec["ms"] = events_ms(lambda: conv2d(x, wt), reps)
-    rec["plain_ms"] = events_ms(lambda: conv2d_ref(x, wt), reps)
-    xc = x.permute(0, 3, 1, 2).contiguous()
-    wc = wt.permute(3, 2, 0, 1).contiguous()
-    rec["library_ms"] = events_ms(lambda: F.conv2d(xc, wc, padding=k // 2), reps)
-    if dtype == torch.float32:
+    reps = reps_for(flops)
+    rec["ms"] = events_ms(lambda: run(x, wt, g), reps)
+    rec["plain_ms"] = events_ms(lambda: plain(x, wt, g), reps)
+    rec["library_ms"] = events_ms(library_call(kind, x, wt, g), reps)
+    if copy:
         # the cuda backend's numpy contract: x and the weight shard go to
         # the card, y comes back, on every conv call
         def roundtrip():
@@ -183,6 +269,113 @@ def check_shape(conv2d, conv2d_ref, dev, b, h, w, cin, cout, k, dtype, *, label)
             got.cpu()
         rec["copy_ms"] = events_ms(roundtrip, max(5, reps // 4))
     return rec
+
+
+class ShapeLog:
+    """Records every conv and conv_vjp the ``cuda`` backend (the
+    kernels' only caller on the main path) is asked for, by shape
+    ``(b, h, w, cin, cout, k)``."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.fwd = collections.Counter()
+        self.bwd = collections.Counter()
+
+    def __enter__(self):
+        conv, vjp = self.backend.conv, self.backend.conv_vjp
+
+        def observed_conv(x, w):
+            self.fwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
+            return conv(x, w)
+
+        def observed_vjp(x, w, g):
+            self.bwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
+            return vjp(x, w, g)
+
+        self.backend.conv, self.backend.conv_vjp = observed_conv, observed_vjp
+        return self
+
+    def __exit__(self, *exc):
+        del self.backend.conv, self.backend.conv_vjp
+
+
+def reset_counts(ks: Kernels) -> None:
+    for fn in ks.wrapper.values():
+        fn.launches = 0
+
+
+def read_counts(ks: Kernels) -> dict:
+    return {name: fn.launches for name, fn in ks.wrapper.items()}
+
+
+def path_shapes(ks, kind, dev, shapes, phase, path):
+    """The kernel against its plain version at every shape a main-path
+    run gave it; each record carries its launch count."""
+    recs = []
+    for shape, n in sorted(shapes.items()):
+        r = check_shape(ks, kind, dev, *shape, torch.float32,
+                        label=f"{path} x{n}", phase=phase)
+        r.update(launches=n, path=path)
+        emit(r)
+        recs.append(r)
+    return recs
+
+
+def float64_steps(cfg, batch, steps, lr, dev):
+    """``steps`` single-device SGD steps in float64 on the card from the
+    train run's params and batch: ``cnn_loss`` with the plain conv,
+    autograd.  Returns (losses, params after each step)."""
+    from repro_torch.launch.hetero import sgd_step, train_inputs
+    from repro_torch.models.cnn import cnn_loss
+
+    params, images, labels = train_inputs(cfg, batch, dev)
+    p = {l: {n: t.double() for n, t in d.items()} for l, d in params.items()}
+    images = images.double()
+    losses, history = [], []
+    for _ in range(steps):
+        p, loss, _ = sgd_step(p, lambda q: cnn_loss(q, images, labels, cfg=cfg), lr)
+        losses.append(loss)
+        history.append(p)
+    return losses, history
+
+
+def params_err(got, want) -> float:
+    return max((got[l][n].double() - want[l][n]).abs().max().item()
+               for l in want for n in want[l])
+
+
+def total(recs, key):
+    """A per-shape quantity summed over a run's launches."""
+    return sum(r["launches"] * r[key] for r in recs)
+
+
+def entry(kind, source, replaces, runs):
+    """One kernels-line entry over the main-path runs that launched
+    it: ``runs`` maps a path to (its shape records, its trace)."""
+    recs = [r for rs, _ in runs.values() for r in rs]
+    bound_ms, bound_by = bound(total(recs, "flops"), total(recs, "bytes"),
+                               torch.float32)
+    return {
+        "name": kind, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(tr["kernels"][kind]["launches"] for _, tr in runs.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "ms": sum(tr["kernels"][kind]["ms"] for _, tr in runs.values()),
+        "plain_ms": total(recs, "plain_ms"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": total(recs, "library_ms"),
+        "isolated_ms": total(recs, "ms"),
+        "by_path": {path: {"launches": tr["kernels"][kind]["launches"],
+                           "ms": tr["kernels"][kind]["ms"],
+                           "plain_ms": total(rs, "plain_ms"),
+                           "library_ms": total(rs, "library_ms"),
+                           "bound_ms": bound(total(rs, "flops"), total(rs, "bytes"),
+                                             torch.float32)[0]}
+                    for path, (rs, tr) in runs.items()},
+        "per": "all launches of the main-path runs named in by_path; ms: "
+               "the profiler trace of those runs; plain_ms, library_ms, "
+               "isolated_ms: each shape's isolated median times its "
+               "launch count, summed",
+    }
 
 
 def main() -> int:
@@ -198,9 +391,15 @@ def main() -> int:
         fail(f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
     from repro_torch.core.backends import get_backend
     from repro_torch.kernels import _build
-    from repro_torch.kernels.conv2d import conv2d
-    from repro_torch.kernels.ref import conv2d_ref
-    from repro_torch.launch.hetero import relu_pool, run_serve, serve_inputs
+    from repro_torch.launch.hetero import (
+        relu_pool,
+        run_hetero,
+        run_serve,
+        serve_inputs,
+        sgd_step,
+        train_inputs,
+    )
+    from repro_torch.models.cnn import cnn_loss, conv_fn_for_backend, make_cnn_config
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -212,19 +411,28 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # -- 2. build ----------------------------------------------------------
-    built = _build.build("conv2d_fwd")
-    emit({"phase": "build", "kernel": "conv2d_fwd", "build_s": built.build_s,
-          "cache_hit": built.cache_hit, "library": str(built.path.relative_to(ROOT)),
-          "ptxas": [ln.strip() for ln in built.ptxas.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    # -- 2. build: one nvcc per source, all started together ----------------
+    libs = sorted(_build._SIGNATURES)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(_build.build, libs)))
+    for lib in libs:
+        b = built[lib]
+        emit({"phase": "build", "kernel": lib, "build_s": b.build_s,
+              "cache_hit": b.cache_hit, "library": str(b.path.relative_to(ROOT)),
+              "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
+                        if "registers" in ln or "spill" in ln]})
+    ks = Kernels()
 
-    # -- 3. kernel against its plain version ----------------------------------
-    cases = [
+    # -- 3. K1 against its plain version ------------------------------------
+    sweep = [
         ("sweep", (1, 8, 8, 3, 16, 3)),
         ("sweep", (2, 16, 16, 8, 24, 5)),
         ("sweep", (2, 32, 32, 3, 50, 5)),
         ("sweep", (1, 16, 16, 50, 40, 5)),
+        ("sweep", (2, 1, 8, 4, 8, 5)),
+        ("sweep", (2, 8, 8, 6, 21, 5)),
+    ]
+    fwd_cases = sweep[:4] + [
         ("C1", (4, 32, 32, 3, 500, 5)),
         ("C2", (4, 16, 16, 500, 1500, 5)),
         ("ragged Cout 437", (4, 16, 16, 500, 437, 5)),
@@ -232,53 +440,71 @@ def main() -> int:
         ("7-row strip", (4, 7, 16, 500, 1500, 5)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
-        for label, shape in cases:
-            emit(check_shape(conv2d, conv2d_ref, dev, *shape, dtype, label=label))
+        for label, shape in fwd_cases:
+            emit(check_shape(ks, "conv2d_fwd", dev, *shape, dtype, label=label,
+                             phase="kernel", copy=dtype == torch.float32))
 
-    # -- 4. serve the headline network through the port ----------------------
-    c1, c2, image, requests, max_batch = 500, 1500, 32, 16, 4
+    # -- 4. K2 and K3 against their plain versions --------------------------
+    bwd_cases = sweep + [
+        ("C1", (32, 32, 32, 3, 500, 5)),
+        ("C2", (32, 16, 16, 500, 1500, 5)),
+        ("ragged Cout 437", (8, 16, 16, 500, 437, 5)),
+        ("Cout 0", (8, 16, 16, 500, 0, 5)),
+        ("no pixels", (0, 16, 16, 500, 64, 5)),
+        ("7-row strip", (8, 7, 16, 500, 1500, 5)),
+    ]
+    for kind in ("conv2d_dx", "conv2d_dw"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for label, shape in bwd_cases:
+                emit(check_shape(ks, kind, dev, *shape, dtype, label=label,
+                                 phase="kernel_bwd"))
+    rng = np.random.default_rng(SEED)
+    xc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 3)).astype(np.float32)).to(dev)
+    gc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 500)).astype(np.float32)).to(dev)
+    dw_a = ks.wrapper["conv2d_dw"](xc1, gc1, 5, 5)
+    dw_b = ks.wrapper["conv2d_dw"](xc1, gc1, 5, 5)
+    if not torch.equal(dw_a, dw_b):
+        fail("kernel_bwd: two K3 runs on C1 gave different bits")
+    zero = ks.wrapper["conv2d_dw"](xc1[:0], gc1[:0], 5, 5)
+    if tuple(zero.shape) != (5, 5, 3, 500) or bool(zero.any()):
+        fail("kernel_bwd: K3 on no pixels is not zeros of the full shape")
+    emit({"phase": "kernel_bwd", "case": "K3 rerun on C1", "bit_identical": True,
+          "no_pixels_zeros": True})
+
+    c1, c2 = 500, 1500
     backends = ["cuda", "cuda", "numpy"]
-    # every conv the cuda devices run, by shape: observed at the backend
-    # (the kernel's only caller on this path), not at the kernel
-    shard_shapes = collections.Counter()
     cuda_backend = get_backend("cuda")
-    backend_conv = cuda_backend.conv
 
-    def observed_conv(xs, ws):
-        shard_shapes[tuple(xs.shape) + (ws.shape[-1], ws.shape[0])] += 1
-        return backend_conv(xs, ws)
-
-    cuda_backend.conv = observed_conv
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            conv2d.launches = 0
-            t_run = time.perf_counter()
-            rec, outputs = run_serve(
-                [1.0, 1.0, 1.0], backends, device="cuda", c1=c1, c2=c2,
-                image_size=image, requests=requests, max_batch=max_batch,
-                partition="kernel", deadline_s=600.0, seed=SEED,
-            )
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t_run
-            launches = conv2d.launches
-    finally:
-        del cuda_backend.conv
+    # -- 5. serve the headline network through the port ----------------------
+    image, requests, max_batch = 32, 16, 4
+    with ShapeLog(cuda_backend) as serve_log, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        rec, outputs = run_serve(
+            [1.0, 1.0, 1.0], backends, device="cuda", c1=c1, c2=c2,
+            image_size=image, requests=requests, max_batch=max_batch,
+            partition="kernel", deadline_s=600.0, seed=SEED,
+        )
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        serve_counts = read_counts(ks)
     if not rec["all_ok"]:
         fail(f"serve: statuses {rec['statuses']}")
-    if launches == 0:
+    if serve_counts["conv2d_fwd"] == 0:
         fail("serve: the conv2d_fwd kernel was never launched on the main path")
-    if launches != sum(shard_shapes.values()):
-        fail(f"serve: {launches} launches for {sum(shard_shapes.values())} "
-             f"convs on the cuda devices")
-    trace = device_trace(prof, run_s, "conv2d_fwd_kernel")
-    if trace["kernel_launches"] != launches:
-        fail(f"serve: the trace holds {trace['kernel_launches']} kernel "
-             f"launches, the wrapper counted {launches}")
+    if serve_counts["conv2d_fwd"] != sum(serve_log.fwd.values()):
+        fail(f"serve: {serve_counts['conv2d_fwd']} launches for "
+             f"{sum(serve_log.fwd.values())} convs on the cuda devices")
+    serve_trace = device_trace(prof, run_s)
+    if serve_trace["kernels"]["conv2d_fwd"]["launches"] != serve_counts["conv2d_fwd"]:
+        fail(f"serve: the trace holds {serve_trace['kernels']['conv2d_fwd']} "
+             f"kernel launches, the wrapper counted {serve_counts['conv2d_fwd']}")
     weights, fc, images = serve_inputs(SEED, c1, c2, image, requests)
     n_check = 4
     x = torch.from_numpy(np.stack(images[:n_check])).to(dev, torch.float64)
     for wk in weights:
-        y = conv2d_ref(x, torch.from_numpy(wk).to(dev, torch.float64))
+        y = ks.conv2d_ref(x, torch.from_numpy(wk).to(dev, torch.float64))
         x = torch.from_numpy(relu_pool(y.cpu().numpy())).to(dev)
     want = (x.reshape(n_check, -1) @ torch.from_numpy(fc).to(dev, torch.float64)).cpu().numpy()
     got = np.stack(outputs[:n_check])
@@ -294,42 +520,108 @@ def main() -> int:
           "kernels_per_device_after": rec["kernels_per_device"],
           "statuses": rec["statuses"], "throughput_rps": rec["throughput_rps"],
           "p50_ms": rec["p50_ms"], "p99_ms": rec["p99_ms"], "wall_s": rec["wall_s"],
-          "timing_s": rec["timing"],
-          "launches": launches, "run_s": run_s, "trace": trace,
-          "launches_by_shape": [list(k) + [n] for k, n in sorted(shard_shapes.items())],
+          "timing_s": rec["timing"], "launches": serve_counts, "run_s": run_s,
+          "trace": serve_trace,
+          "launches_by_shape": [list(k) + [n] for k, n in sorted(serve_log.fwd.items())],
           "checked_outputs": n_check, "max_abs_err_vs_f64_chain": serve_err,
           "atol": SERVE_ATOL})
 
-    # -- 5. the kernel at every shape the main path gave it ------------------
-    path_recs = []
-    for shape, n in sorted(shard_shapes.items()):
-        r = check_shape(conv2d, conv2d_ref, dev, *shape, torch.float32,
-                        label=f"main path x{n}")
-        r.update(phase="main_path_shape", launches=n)
-        emit(r)
-        path_recs.append(r)
+    # -- 6. K1 at every shape the serve run gave it ---------------------------
+    serve_recs = path_shapes(ks, "conv2d_fwd", dev, serve_log.fwd,
+                             "main_path_shape", "serve")
 
-    def total(key):
-        return sum(r["launches"] * r[key] for r in path_recs)
+    # -- 7. train the headline network through the port ----------------------
+    cfg = make_cnn_config(c1, c2)
+    batch, micro, steps, lr = 32, 4, 3, 0.05
+    with ShapeLog(cuda_backend) as train_log, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        trec, trained = run_hetero(
+            [1.0, 1.0, 1.0], backends, device="cuda", train_pipeline=True,
+            microbatches=micro, c1=c1, c2=c2, batch=batch, steps=steps, lr=lr,
+            partition="kernel",
+        )
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        train_counts = read_counts(ks)
+    train_trace = device_trace(prof, run_s)
+    for kind, n in train_counts.items():
+        if n == 0:
+            fail(f"train: the {kind} kernel was never launched on the main path")
+        if train_trace["kernels"][kind]["launches"] != n:
+            fail(f"train: the trace holds {train_trace['kernels'][kind]['launches']} "
+                 f"{kind} launches, the wrapper counted {n}")
+    if train_counts["conv2d_fwd"] != sum(train_log.fwd.values()):
+        fail("train: K1 launches differ from the cuda devices' convs")
+    for kind in ("conv2d_dx", "conv2d_dw"):
+        if train_counts[kind] != sum(train_log.bwd.values()):
+            fail(f"train: {kind} launches differ from the cuda devices' backward shards")
+    if not np.isfinite(trec["losses"]).all():
+        fail(f"train: non-finite losses {trec['losses']}")
+    ref_losses, ref_params = float64_steps(cfg, batch, steps, lr, dev)
+    loss_errs = [abs(a - b) for a, b in zip(trec["losses"], ref_losses)]
+    param_errs = [params_err(a, b) for a, b in zip(trained, ref_params)]
+    if loss_errs[0] > LOSS_ATOL or param_errs[0] > PARAM_ATOL:
+        fail(f"train: step 1 vs the float64 step, loss err {loss_errs[0]} "
+             f"(atol {LOSS_ATOL}), param err {param_errs[0]} (atol {PARAM_ATOL})")
+    t = trec["timing"]
+    emit({"phase": "train", "net": f"cifar_cnn_{c1}_{c2}", "backends": backends,
+          "slowdowns": [1.0, 1.0, 1.0], "partition": "kernel", "batch": batch,
+          "microbatches": micro, "steps": steps, "lr": lr,
+          "losses": trec["losses"], "f64_losses": ref_losses,
+          "loss_err_by_step": loss_errs, "param_err_by_step": param_errs,
+          "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+          "wall_s": trec["wall_s"], "s_per_step": trec["wall_s"] / steps,
+          "probe_s": trec["probe_s"], "shares": trec["shares"],
+          "kernels_per_device_after": trec["kernels_per_device"],
+          "timing_s": {k: t[k] for k in ("conv_s", "gather_wait_s", "master_conv_s")},
+          "timing_all_s": t, "comp_duty": trec["comp_duty"],
+          "comm_mb": trec["comm_mb"], "launches": train_counts, "run_s": run_s,
+          "trace": train_trace,
+          "fwd_by_shape": [list(k) + [n] for k, n in sorted(train_log.fwd.items())],
+          "bwd_by_shape": [list(k) + [n] for k, n in sorted(train_log.bwd.items())]})
 
-    path_bound_ms, path_bound_by = bound(total("flops"), total("bytes"), torch.float32)
-    kernels = [{
-        "name": "conv2d_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
-        "replaces": "src/repro/kernels/conv2d.py:78",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in path_recs),
-        "ms": trace["kernel_ms"],
-        "plain_ms": total("plain_ms"),
-        "bound_ms": path_bound_ms,
-        "bound_by": path_bound_by,
-        "library_ms": total("library_ms"),
-        "isolated_ms": total("ms"),
-        "per": "all of the serve run's launches; ms: the profiler trace "
-               "of the serve run; plain_ms, library_ms, isolated_ms: each "
-               "shape's isolated median times its launch count, summed",
-    }]
+    # -- 8. one autograd step through Conv2dFunction on one device -----------
+    params, imgs, labels = train_inputs(cfg, batch, dev)
+    before = read_counts(ks)
+    conv_fn = conv_fn_for_backend("cuda")
+    new, loss, _ = sgd_step(
+        params, lambda q: cnn_loss(q, imgs, labels, cfg=cfg, conv_fn=conv_fn), lr)
+    torch.cuda.synchronize()
+    used = {k: n - before[k] for k, n in read_counts(ks).items()}
+    if min(used.values()) == 0:
+        fail(f"train_autograd: a kernel was not launched: {used}")
+    a_loss_err = abs(loss - ref_losses[0])
+    a_param_err = params_err(new, ref_params[0])
+    if a_loss_err > LOSS_ATOL or a_param_err > PARAM_ATOL:
+        fail(f"train_autograd: vs the float64 step, loss err {a_loss_err}, "
+             f"param err {a_param_err}")
+    emit({"phase": "train_autograd", "loss": loss, "f64_loss": ref_losses[0],
+          "loss_err": a_loss_err, "max_param_err": a_param_err, "launches": used})
+
+    # -- 9. K1, K2, K3 at every shape the train run gave them ----------------
+    train_recs = {
+        "conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, train_log.fwd,
+                                  "main_path_shape", "train"),
+        "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, train_log.bwd,
+                                 "main_path_shape", "train"),
+        "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, train_log.bwd,
+                                 "main_path_shape", "train"),
+    }
+
+    kernels = [
+        entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
+              "src/repro/kernels/conv2d.py:78",
+              {"serve": (serve_recs, serve_trace),
+               "train": (train_recs["conv2d_fwd"], train_trace)}),
+        entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
+              "src/repro/kernels/conv2d.py:94",
+              {"train": (train_recs["conv2d_dx"], train_trace)}),
+        entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
+              "src/repro/kernels/conv2d.py:138",
+              {"train": (train_recs["conv2d_dw"], train_trace)}),
+    ]
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):
         fail("the JAX package or jax was imported")

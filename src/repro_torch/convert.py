@@ -1,10 +1,11 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from the JAX package, and back.
 
 The JAX package's ``init_cnn`` (repro/models/cnn.py) returns a nested
 dict — ``conv1``/``conv2``/``fc``, each with ``kernel`` and ``bias`` —
 of jax arrays; ``np.asarray`` on each leaf turns it into the numpy tree
-these functions take.  Layouts are kept as they are: conv kernels HWIO,
-dense kernels (in, out).
+``params_from_numpy`` takes, and ``params_to_numpy`` turns the port's
+tree of tensors back into one, so two trees compare leaf by leaf.
+Layouts are kept as they are: conv kernels HWIO, dense kernels (in, out).
 """
 from __future__ import annotations
 
@@ -20,6 +21,14 @@ def params_from_numpy(tree, device) -> dict:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(torch.device(device))
+
+
+def params_to_numpy(tree):
+    """Map a nested dict of tensors to numpy arrays on the host, keeping
+    every name, shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
 
 
 def _to_numpy(a) -> np.ndarray:

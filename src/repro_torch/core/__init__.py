@@ -19,6 +19,7 @@ _EXPORTS = {
     "register_backend": "repro_torch.core.backends",
     # master/slave cluster
     "HeteroCluster": "repro_torch.core.cluster.cluster",
+    "make_distributed_conv": "repro_torch.core.cluster.cluster",
     # partitioner
     "allocate_kernels": "repro_torch.core.partitioner",
     "effective_times": "repro_torch.core.partitioner",

@@ -13,10 +13,10 @@ different kernels (the paper's CPU/GPU scenario):
 
     numpy   — serial im2col, thread-safe everywhere; the master's
               default.
-    cuda    — the hand-written Hopper conv kernel
-              (kernels/csrc/conv2d_fwd.cu) on a CUDA device: the
-              counterpart of the JAX package's ``pallas`` backend.
-              Forward only in this package so far.
+    cuda    — the hand-written Hopper kernels on a CUDA device: the
+              forward conv (kernels/csrc/conv2d_fwd.cu) and its dX and
+              dW (kernels/csrc/conv2d_bwd.cu); the counterpart of the
+              JAX package's ``pallas`` backend.
     torch   — the plain PyTorch version (kernels/ref.py) on a named
               device (``torch:cpu``, ``torch:cuda``), with an autograd
               VJP: the reference the tests run the protocol on.
@@ -270,19 +270,24 @@ def _cuda_device(index: int = 0):
 
 @register_backend("cuda")
 class CudaBackend(ConvBackend):
-    """Runs the hand-written conv kernel (kernels/conv2d.py) on a CUDA
-    device.  The contract is numpy in and out, so every ``conv`` copies
-    x and the weight shard to the card and y back.  The kernel is built
-    here, at construction, so a missing ``nvcc`` or a failed build
-    raises before any slave thread starts."""
+    """Runs the hand-written conv kernels (kernels/conv2d.py) on a CUDA
+    device: ``conv2d`` forward, ``conv2d_dx`` and ``conv2d_dw`` backward.
+    The contract is numpy in and out, so every call copies its operands
+    to the card and its results back.  The kernels are built here, at
+    construction, so a missing ``nvcc`` or a failed build raises before
+    any slave thread starts."""
 
     name = "cuda"
 
     def __init__(self):
-        from repro_torch.kernels._build import conv2d_fwd_library
+        from repro_torch.kernels._build import (
+            conv2d_bwd_library,
+            conv2d_fwd_library,
+        )
 
         self.device = _cuda_device()
         conv2d_fwd_library()
+        conv2d_bwd_library()
 
     def conv(self, x, w):
         from repro_torch.kernels.conv2d import conv2d
@@ -292,11 +297,14 @@ class CudaBackend(ConvBackend):
         return conv2d(xt, wt).cpu().numpy()
 
     def conv_vjp(self, x, w, g):
-        raise NotImplementedError(
-            "the 'cuda' backend has no backward yet: the dX and dW kernels "
-            "(conv2d_dx_pallas and conv2d_dw_pallas in the JAX package) "
-            "come with the training slice of the port"
-        )
+        from repro_torch.kernels.conv2d import conv2d_dw, conv2d_dx
+
+        xt = _host_tensor(x).to(self.device)
+        wt = _host_tensor(w).to(self.device)
+        gt = _host_tensor(g).to(self.device)
+        dx = conv2d_dx(gt, wt)
+        dw = conv2d_dw(xt, gt, wt.shape[0], wt.shape[1])
+        return dx.cpu().numpy(), dw.cpu().numpy()
 
 
 @register_backend("torch")

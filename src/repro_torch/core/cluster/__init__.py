@@ -24,6 +24,7 @@ from repro_torch.lazy import lazy_exports
 
 _EXPORTS = {
     "HeteroCluster": ".cluster",
+    "make_distributed_conv": ".cluster",
     "Transport": ".transport",
     "InProcTransport": ".transport",
     "SharedNIC": ".transport",

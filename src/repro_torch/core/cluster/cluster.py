@@ -1512,3 +1512,43 @@ class HeteroCluster:
             s.close()
         if self._listener is not None:
             self._listener.close()
+
+
+def make_distributed_conv(cluster: HeteroCluster):
+    """A drop-in ``conv_fn(params, x)`` for models/cnn.py: a
+    ``torch.autograd.Function`` whose forward runs ``cluster.
+    conv_forward`` (plus the bias) and whose backward runs ``cluster.
+    conv_backward`` (plus ``db = g.sum((0, 1, 2))``).  If the cluster is
+    pipelined, every conv call is internally microbatched and
+    double-buffered.
+
+    The JAX package's version refuses a non-numpy master and
+    interpret-mode pallas slaves: its host callbacks block the jax
+    runtime thread, and re-entering jax there deadlocks.  Autograd calls
+    this Function's forward and backward as plain Python on the calling
+    thread, with nothing blocked, so any master backend is safe and
+    neither refusal is kept."""
+    import torch
+
+    def host(t):
+        return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
+
+    def like(a, t):
+        return torch.from_numpy(np.array(a, np.float32)).to(t.device, t.dtype)
+
+    class DistributedConv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b):
+            ctx.save_for_backward(x, w)
+            return like(cluster.conv_forward(host(x), host(w)), x) + b
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            dx, dw = cluster.conv_backward(host(x), host(w), host(g))
+            return like(dx, x), like(dw, w), g.sum((0, 1, 2))
+
+    def conv_fn(params, x):
+        return DistributedConv.apply(x, params["kernel"], params["bias"])
+
+    return conv_fn

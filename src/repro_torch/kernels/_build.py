@@ -9,9 +9,10 @@ It is bound through ``ctypes``: pointers come from ``tensor.data_ptr()``
 and the stream from ``torch.cuda.current_stream().cuda_stream``.
 
 The first conv runs at once on every in-process slave thread (the
-cluster's ``probe()``), so the build is serialised by a lock, and the
-library is installed by an atomic rename so that concurrent slave
-processes never load a half-written file.  Nothing here runs at import:
+cluster's ``probe()``), so each library's build is serialised by its own
+lock (two sources still build side by side), and the library is
+installed by an atomic rename so that concurrent slave processes never
+load a half-written file.  Nothing here runs at import:
 the CPU tests import every module, and this host may have no ``nvcc``.
 """
 from __future__ import annotations
@@ -57,9 +58,21 @@ _SIGNATURES = {
         ),
         "conv2d_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "conv2d_bwd": {
+        "conv2d_dx_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "conv2d_dw_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "conv2d_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
-_LOCK = threading.Lock()
+_LOCKS = {name: threading.Lock() for name in _SIGNATURES}
 _LOADED: dict = {}
 
 
@@ -81,7 +94,7 @@ def build(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` (once per source hash) and load it.
 
     Raises ``RuntimeError`` with nvcc's output when the build fails."""
-    with _LOCK:
+    with _LOCKS[name]:
         if name in _LOADED:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"
@@ -121,3 +134,8 @@ def build(name: str) -> BuiltLibrary:
 def conv2d_fwd_library() -> ctypes.CDLL:
     """The bound ``conv2d_fwd`` library, built on first call."""
     return build("conv2d_fwd").lib
+
+
+def conv2d_bwd_library() -> ctypes.CDLL:
+    """The bound ``conv2d_bwd`` library (dX and dW), built on first call."""
+    return build("conv2d_bwd").lib

@@ -1,11 +1,14 @@
-"""SAME stride-1 conv2d forward on Hopper: the wrapper of the hand-written
-CUDA kernel ``csrc/conv2d_fwd.cu``.
+"""SAME stride-1 conv2d on Hopper: the wrappers of the hand-written CUDA
+kernels ``csrc/conv2d_fwd.cu`` (forward) and ``csrc/conv2d_bwd.cu``
+(dX and dW), and the differentiable conv built from them.
 
-Counterpart of the Pallas TPU kernel ``repro/kernels/conv2d.py::
-conv2d_pallas``.  A tensor on the CPU goes to the plain version
-(``ref.conv2d_ref``); a CUDA tensor launches the kernel or raises —
-there is no fallback.  ``conv2d.launches`` counts the kernel's
-launches, so a run can show that its path went through the kernel.
+Counterparts of the Pallas TPU kernels of ``repro/kernels/conv2d.py``:
+``conv2d`` of ``conv2d_pallas``, ``conv2d_dx`` of ``conv2d_dx_pallas``,
+``conv2d_dw`` of ``conv2d_dw_pallas``, and ``Conv2dFunction`` of the
+``pconv`` custom VJP in ``repro/core/backends.py``.  Tensors on the CPU
+go to the plain versions (``ref.py``); CUDA tensors launch the kernel or
+raise — there is no fallback.  Each wrapper's ``.launches`` counts its
+kernel's launches, so a run can show that its path went through it.
 """
 from __future__ import annotations
 
@@ -13,11 +16,48 @@ import threading
 
 import torch
 
-from repro_torch.kernels._build import conv2d_fwd_library
-from repro_torch.kernels.ref import conv2d_ref
+from repro_torch.kernels._build import conv2d_bwd_library, conv2d_fwd_library
+from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _COUNT_LOCK = threading.Lock()
+# dW's split of the pixel axis: enough chunks for two blocks per SM,
+# each chunk at least this many pixels
+_DW_MIN_CHUNK = 256
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check(name: str, a: torch.Tensor, b: torch.Tensor, kh: int, kw: int) -> None:
+    """The kernels' common contract: one CUDA device, 4-d operands of
+    one dtype (float32 or bfloat16), odd kernels."""
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(
+            f"{name}: operands must lie on one CUDA device (or all on the "
+            f"CPU), got {a.device} and {b.device}"
+        )
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"{name}: odd kernels only, got {kh}x{kw}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"{name}: operands must both be float32 or both bfloat16, got "
+            f"{a.dtype} and {b.dtype}"
+        )
+
+
+def _raise_on(code: int, lib, err_fn: str, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{getattr(lib, err_fn)(code).decode()} (cudaError {code})"
+        )
+
+
+def _count(fn) -> None:
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,26 +68,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     An empty output (B, H or Cout of 0) is returned without a launch.
     Non-contiguous inputs (a weight shard sliced on its last axis) are
     made contiguous first."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if _on_cpu(x, w):
         return conv2d_ref(x, w)
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
-        raise ValueError(
-            f"conv2d: x and w must lie on one CUDA device (or both on the "
-            f"CPU), got {x.device} and {w.device}"
-        )
     if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(
             f"conv2d: want x (B,H,W,Cin) and w (kh,kw,Cin,Cout), got "
             f"{tuple(x.shape)} and {tuple(w.shape)}"
         )
     kh, kw, cin, cout = w.shape
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"conv2d: odd kernels only, got {kh}x{kw}")
-    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
-        raise TypeError(
-            f"conv2d: x and w must both be float32 or both bfloat16, got "
-            f"{x.dtype} and {w.dtype}"
-        )
+    _check("conv2d", x, w, kh, kw)
     b, h, wd, _ = x.shape
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
@@ -61,15 +90,126 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(), y.data_ptr(),
             b, h, wd, cin, cout, kh, kw, _DTYPE_CODE[x.dtype], stream,
         )
-    if code != 0:
-        raise RuntimeError(
-            f"conv2d_fwd launch failed for x {tuple(x.shape)} w "
-            f"{tuple(w.shape)} {x.dtype}: "
-            f"{lib.conv2d_fwd_error_string(code).decode()} (cudaError {code})"
-        )
-    with _COUNT_LOCK:
-        conv2d.launches += 1
+    _raise_on(code, lib, "conv2d_fwd_error_string",
+              f"conv2d_fwd for x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype}")
+    _count(conv2d)
     return y
 
 
+def conv2d_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dX of the SAME stride-1 conv: g (B, H, W, Cout) against the
+    forward kernel w (kh, kw, Cin, Cout) -> (B, H, W, Cin) in g's dtype.
+
+    Same contract as ``conv2d``.  An empty output returns without a
+    launch, and so does Cout = 0, whose dX is zeros."""
+    if _on_cpu(g, w):
+        return conv2d_dx_ref(g, w)
+    if g.dim() != 4 or w.dim() != 4 or w.shape[3] != g.shape[3]:
+        raise ValueError(
+            f"conv2d_dx: want g (B,H,W,Cout) and w (kh,kw,Cin,Cout), got "
+            f"{tuple(g.shape)} and {tuple(w.shape)}"
+        )
+    kh, kw, cin, cout = w.shape
+    _check("conv2d_dx", g, w, kh, kw)
+    b, h, wd, _ = g.shape
+    if b * h * wd * cin == 0 or cout == 0:
+        return torch.zeros((b, h, wd, cin), dtype=g.dtype, device=g.device)
+    dx = torch.empty((b, h, wd, cin), dtype=g.dtype, device=g.device)
+    g = g.contiguous()
+    w = w.contiguous()
+    lib = conv2d_bwd_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        code = lib.conv2d_dx_launch(
+            g.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            b, h, wd, cin, cout, kh, kw, _DTYPE_CODE[g.dtype], stream,
+        )
+    _raise_on(code, lib, "conv2d_bwd_error_string",
+              f"conv2d_dx for g {tuple(g.shape)} w {tuple(w.shape)} {g.dtype}")
+    _count(conv2d_dx)
+    return dx
+
+
+def dw_split(x_shape, kh: int, kw: int, cout: int, sm_count: int):
+    """``(splits, chunk)``: the pixel axis of dW cut into ``splits``
+    chunks of ``chunk`` pixels (a multiple of the kernel's 16-pixel
+    slab), enough that the (kh*kw*Cin / 64) x (Cout / 64) output tiles
+    make two blocks per SM, each chunk at least ``_DW_MIN_CHUNK``
+    pixels.  A function of the shapes alone, so a rerun sums in the
+    same order."""
+    b, h, wd, cin = x_shape
+    pixels = b * h * wd
+    tiles = -(-kh * kw * cin // 64) * -(-cout // 64)
+    want = -(-2 * sm_count // tiles)
+    splits = max(1, min(want, pixels // _DW_MIN_CHUNK, 65535))
+    chunk = -(-pixels // splits)
+    chunk = -(-chunk // 16) * 16
+    return -(-pixels // chunk), chunk
+
+
+def conv2d_dw(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """dW of the SAME stride-1 conv: x (B, H, W, Cin) and g (B, H, W,
+    Cout) -> (kh, kw, Cin, Cout), always float32.
+
+    Same contract as ``conv2d``.  No pixels (B*H*W = 0) give zeros of
+    the full shape without a launch — a zero-row batch shard contributes
+    a zero dW — and Cin or Cout of 0 an empty dW.  Deterministic: the
+    pixel chunks' partial sums are reduced in a fixed order, no atomics."""
+    if _on_cpu(x, g):
+        return conv2d_dw_ref(x, g, kh, kw)
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(
+            f"conv2d_dw: want x (B,H,W,Cin) and g (B,H,W,Cout), got "
+            f"{tuple(x.shape)} and {tuple(g.shape)}"
+        )
+    _check("conv2d_dw", x, g, kh, kw)
+    b, h, wd, cin = x.shape
+    cout = g.shape[3]
+    dw = torch.zeros((kh, kw, cin, cout), dtype=torch.float32, device=x.device)
+    if dw.numel() == 0 or b * h * wd == 0:
+        return dw
+    x = x.contiguous()
+    g = g.contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, chunk = dw_split(x.shape, kh, kw, cout, sms)
+    ws = (torch.empty((splits, *dw.shape), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    lib = conv2d_bwd_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = lib.conv2d_dw_launch(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            b, h, wd, cin, cout, kh, kw, splits, chunk,
+            _DTYPE_CODE[x.dtype], stream,
+        )
+    _raise_on(code, lib, "conv2d_bwd_error_string",
+              f"conv2d_dw for x {tuple(x.shape)} g {tuple(g.shape)} {x.dtype}")
+    _count(conv2d_dw)
+    return dw
+
+
 conv2d.launches = 0
+conv2d_dx.launches = 0
+conv2d_dw.launches = 0
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """The differentiable SAME stride-1 conv: forward ``conv2d`` (K1),
+    backward ``conv2d_dx`` (K2) and ``conv2d_dw`` (K3), dW cast to w's
+    dtype — the port's ``pconv``.  On CPU tensors every step runs the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = conv2d_dx(g, w) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_dw(x, g, w.shape[0], w.shape[1]).to(w.dtype)
+        return dx, dw

@@ -1,30 +1,49 @@
-"""Serve the paper's CNN over the heterogeneous cluster, on the card.
+"""Train and serve the paper's CNN over the heterogeneous cluster, on
+the card.
 
-The port's counterpart of ``repro/launch/hetero.py``.  This package has
-the serving lane (``--serve``): requests go through the continuous-
-batching ``ClusterServer`` (serve/server.py), the cross-batch
-``ServeChain`` pipeline (core/cluster/scheduler.py), and each device's
-conv backend (core/backends.py) — Eq. 1 probing and partitioning, the
-scatter/gather protocol and the CPU/GPU mix included:
+The port's counterpart of ``repro/launch/hetero.py``: one CLI over
+per-device conv backends (core/backends.py), Eq. 1 probing and
+partitioning, and the scatter/gather protocol (core/cluster/), with the
+CPU/GPU device mix.  Three modes:
+
+``--train-pipeline`` runs full training steps through the
+activation-stashing schedule (``make_cluster_train_step`` ->
+``HeteroCluster.conv_train_step``): forward and backward of both conv
+layers are distributed — on a ``cuda`` device the hand-written Hopper
+kernels K1 (forward), K2 (dX) and K3 (dW) — while the master-only
+stages (bias, ReLU, LRN, pool, fc, softmax loss) run as PyTorch on the
+master's device and overlap slave compute:
+
+    PYTHONPATH=src python -m repro_torch.launch.hetero --train-pipeline \
+        --backends cuda,cuda,numpy --slowdowns 1,1,1 \
+        --c1 500 --c2 1500 --batch 32 --microbatches 4 --steps 3
+
+``--pipeline`` (and, without it, the barrier protocol) runs the
+autograd step of ``cnn_loss`` with the cluster as its conv
+(``make_distributed_conv``).  ``--serve`` serves requests through the
+continuous-batching ``ClusterServer`` (serve/server.py) and the
+cross-batch ``ServeChain`` pipeline:
 
     PYTHONPATH=src python -m repro_torch.launch.hetero --serve \
         --backends cuda,cuda,numpy --slowdowns 1,1,1 \
         --c1 500 --c2 1500 --image-size 32 --requests 16 --max-batch 4
 
 ``--device`` picks the default backend of every device not named by
-``--backends``: ``cuda`` (the default: the hand-written Hopper kernel)
-or ``cpu`` (``torch:cpu``, the plain PyTorch conv).  ``--device cuda``
-on a host without a card is an error, never a CPU run.
+``--backends`` and the device of the master-only stages: ``cuda`` (the
+default: the hand-written kernels on the card) or ``cpu``
+(``torch:cpu``, the plain PyTorch conv, and the stages on the CPU).
+``--device cuda`` on a host without a card is an error, never a CPU
+run.  The two-tier topology of the JAX CLI (``--groups``) waits for the
+port of ``core/cluster/hierarchy.py`` and is refused.
 
-The training modes of the JAX CLI (``--pipeline``, ``--train-pipeline``,
-``--groups``) need the backward kernels and the model port, which come
-in a later slice; here they exit with a message saying so.
-
-Both CLIs draw identical weights and requests from numpy's generator
-(``run_serve``'s ``seed``, 0 on the command line), so their served
-outputs can be compared.  The CLI
-always leaves through ``os._exit`` after flushing its output, so no
-native runtime thread can hang the interpreter at exit.
+Training draws its params from ``init_cnn`` with a ``torch.Generator``
+seeded 0 and its images from one seeded 1 (``train_inputs``); they
+cannot equal ``jax.random``'s draws, so parity with the JAX package is
+tested by carrying its params across (``convert.py``).  Serving draws
+identical weights and requests from numpy's generator in both CLIs
+(``run_serve``'s ``seed``, 0 on the command line).  The CLI always
+leaves through ``os._exit`` after flushing its output, so no native
+runtime thread can hang the interpreter at exit.
 """
 from __future__ import annotations
 
@@ -37,14 +56,20 @@ import time
 import traceback
 
 import numpy as np
+import torch
 
-from repro_torch.core.cluster.cluster import HeteroCluster
+from repro_torch.core.cluster.cluster import HeteroCluster, make_distributed_conv
 from repro_torch.core.partitioner import workload_shares
+from repro_torch.models.cnn import (
+    cnn_loss,
+    init_cnn,
+    make_cluster_train_step,
+    make_cnn_config,
+)
 
-_TRAINING_LATER = (
-    "training (--pipeline, --train-pipeline, --groups) needs the dX/dW "
-    "kernels and the CNN model, which come in a later slice of the port; "
-    "this CLI serves (--serve)"
+_GROUPS_LATER = (
+    "--groups (the two-tier hierarchy) needs core/cluster/hierarchy.py, "
+    "which is not ported yet; run a flat cluster"
 )
 
 
@@ -78,6 +103,174 @@ def relu_pool(y: np.ndarray) -> np.ndarray:
     y = np.maximum(y, 0.0)
     b, h, w, c = y.shape
     return y.reshape(b, h // 2, 2, w // 2, 2, c).max(axis=(2, 4))
+
+
+def train_inputs(cfg, batch: int, device):
+    """The training run's params and batch on ``device``: ``init_cnn``
+    from a ``torch.Generator`` seeded 0, standard-normal images from one
+    seeded 1, labels ``arange(batch) % num_classes``.  Drawn on the CPU,
+    so the CPU and the card get the same numbers.
+    Returns ``(params, images, labels)``."""
+    params = init_cnn(torch.Generator().manual_seed(0), cfg, device)
+    shape = (batch, cfg.image_size, cfg.image_size, cfg.image_channels)
+    images = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    labels = torch.arange(batch) % cfg.num_classes
+    return params, images.to(device), labels.to(device)
+
+
+def sgd_step(params, loss_fn, lr: float):
+    """One autograd SGD step: ``loss_fn(params) -> (loss, acc)``;
+    returns ``(new_params, loss, acc)`` with every leaf moved by
+    ``-lr * grad``."""
+    names = [(layer, name) for layer in params for name in params[layer]]
+    leaves = [params[l][n].detach().requires_grad_() for l, n in names]
+    q = {layer: {} for layer in params}
+    for (l, n), t in zip(names, leaves):
+        q[l][n] = t
+    loss, acc = loss_fn(q)
+    grads = torch.autograd.grad(loss, leaves)
+    new = {layer: {} for layer in params}
+    for (l, n), t, g in zip(names, leaves, grads):
+        new[l][n] = (t - lr * g).detach()
+    return new, float(loss.detach()), float(acc)
+
+
+def run_hetero(
+    slowdowns,
+    backends=None,
+    *,
+    device: str = "cuda",
+    pipeline: bool = False,
+    train_pipeline: bool = False,
+    microbatches: int = 4,
+    c1: int = 8,
+    c2: int = 16,
+    batch: int = 8,
+    steps: int = 2,
+    lr: float = 0.05,
+    partition: str = "kernel",
+    wire_dtype=None,
+    wire_codec=None,
+    weight_cache: bool = True,
+    bandwidth_mbps=None,
+    transport: str = "inproc",
+    expected_slaves=None,
+    listen_host: str = "127.0.0.1",
+    listen_port: int = 0,
+    heartbeat_s=None,
+):
+    """``steps`` training steps of the paper's CNN over the cluster, all
+    on the same batch (``train_inputs``).  With ``train_pipeline`` the
+    pipelined full step (``make_cluster_train_step``); otherwise the
+    autograd step with the cluster as its conv (``make_distributed_conv``),
+    microbatched when ``pipeline``.
+
+    Returns ``(rec, history)``: the JSON-ready record (losses, wall
+    time, Eq. 1 probe times, the timing breakdown and comp-aware duty)
+    and the params after each step, in order."""
+    if backends is None:
+        backends = [DEVICE_BACKENDS[device]] * len(slowdowns)
+    cfg = make_cnn_config(c1, c2)
+    cluster = HeteroCluster(
+        slowdowns, backends,
+        pipeline=pipeline or train_pipeline, microbatches=microbatches,
+        partition=partition, wire_dtype=wire_dtype,
+        wire_codec=wire_codec, weight_cache=weight_cache,
+        bandwidth_mbps=bandwidth_mbps, transport=transport,
+        expected_slaves=expected_slaves,
+        listen_host=listen_host, listen_port=listen_port,
+        heartbeat_s=heartbeat_s,
+    )
+    try:
+        probe = cluster.probe(
+            image_size=cfg.image_size, in_channels=cfg.image_channels,
+            kernel_size=cfg.kernel_size, num_kernels=max(8, c1), batch=batch,
+        )
+        shares = workload_shares(probe)
+        print(f"devices: slowdowns={list(cluster.slowdowns)} "
+              f"backends={cluster.backends} transport={transport} "
+              f"master stages on {device}")
+        print(f"probe times: {np.round(probe, 4).tolist()}")
+        if transport in ("tcp", "shm"):
+            print(f"measured link bandwidth (Mbps): "
+                  f"{[None if b is None else round(b, 1) for b in cluster.measured_bandwidths]}")
+        print(f"Eq.1 shares: {np.round(shares, 3).tolist()} -> "
+              f"c2 kernels {cluster.shares_for(c2).tolist()}")
+
+        params, imgs, labels = train_inputs(cfg, batch, device)
+        if train_pipeline:
+            # full-step pipeline: fwd + bwd distributed, direct driver
+            cluster_step = make_cluster_train_step(cluster, cfg, lr=lr,
+                                                   device=device)
+
+            def train_step(p):
+                p, loss, _acc = cluster_step(p, imgs, labels)
+                return p, loss
+        else:
+            # autograd step with the cluster as the conv
+            conv_fn = make_distributed_conv(cluster)
+
+            def train_step(p):
+                p, loss, _acc = sgd_step(
+                    p, lambda q: cnn_loss(q, imgs, labels, cfg=cfg,
+                                          conv_fn=conv_fn), lr)
+                return p, loss
+
+        cluster.reset_stats()
+        t0 = time.perf_counter()
+        losses, history = [], []
+        for _ in range(steps):
+            params, loss = train_step(params)
+            losses.append(float(loss))
+            history.append(params)
+        wall = time.perf_counter() - t0
+
+        t = cluster.timing
+        rec = {
+            "protocol": (
+                "trainstep-pipelined" if train_pipeline
+                else "pipelined" if pipeline else "barrier"
+            ),
+            "device": device,
+            "transport": transport,
+            "measured_bandwidth_mbps": list(cluster.measured_bandwidths),
+            "microbatches": microbatches if (pipeline or train_pipeline) else 1,
+            "partition": partition,
+            "partition_choices": {
+                str(k): v for k, v in cluster.partition_choices.items()
+            },
+            "wire_dtype": wire_dtype or "fp32",
+            "wire_codec": cluster._codec_cfg.spec,
+            "weight_cache": weight_cache,
+            "bandwidth_mbps": bandwidth_mbps,
+            "heartbeat_s": heartbeat_s,
+            "slave_ids": list(cluster.slave_ids),
+            "failures": list(cluster.failures),
+            "comp_duty": cluster.comp_duty,
+            "backends": list(cluster.backends),
+            "probe_s": [float(x) for x in probe],
+            "shares": [float(s) for s in shares],
+            "kernels_per_device": {
+                "c1": cluster.shares_for(c1).tolist(),
+                "c2": cluster.shares_for(c2).tolist(),
+            },
+            "losses": losses,
+            "wall_s": wall,
+            "comm_mb": cluster.comm_bytes / 2 ** 20,
+            "timing": dataclasses.asdict(t),
+        }
+        print(f"{steps} steps in {wall:.2f}s  losses={np.round(losses, 4).tolist()}")
+        print(f"comm={rec['comm_mb']:.1f}MiB  scatter={t.comm_s:.3f}s "
+              f"conv={t.conv_s:.3f}s wait={t.gather_wait_s:.3f}s "
+              f"overlap={t.overlap_s:.3f}s")
+        if train_pipeline:
+            print(f"comp-aware: master non-conv duty={cluster.comp_duty:.2f} -> "
+                  f"c2 kernels now {cluster.shares_for(c2).tolist()}")
+        if partition == "auto" and cluster.partition_choices:
+            print(f"auto partition picks: {rec['partition_choices']}")
+        return rec, history
+    finally:
+        cluster.shutdown()
 
 
 def run_serve(
@@ -217,8 +410,9 @@ def main():
                          "(cuda|torch[:cpu|:cuda]|numpy|sim); default: "
                          "--device's backend everywhere")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="the default backend of every device: cuda (the "
-                         "hand-written kernel; the default) or cpu "
+                    help="the default backend of every device and the "
+                         "device of the master-only stages: cuda (the "
+                         "hand-written kernels; the default) or cpu "
                          "(torch:cpu, the plain PyTorch conv)")
     ap.add_argument("--serve", action="store_true",
                     help="serve a stream of forward-pass requests through "
@@ -226,9 +420,11 @@ def main():
                          "nonzero unless every request completes under "
                          "deadline")
     ap.add_argument("--pipeline", action="store_true",
-                    help="training mode of the JAX CLI: not ported yet")
+                    help="microbatched, double-buffered scatter/gather "
+                         "(default: barrier protocol)")
     ap.add_argument("--train-pipeline", action="store_true",
-                    help="training mode of the JAX CLI: not ported yet")
+                    help="pipeline the FULL train step (fwd+bwd of every "
+                         "conv layer, master-only stages overlapped)")
     ap.add_argument("--groups", default=None, metavar="GxM",
                     help="two-tier training topology of the JAX CLI: not "
                          "ported yet")
@@ -275,44 +471,52 @@ def main():
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--c1", type=int, default=8)
     ap.add_argument("--c2", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=None, help="append the record as JSONL")
     args = ap.parse_args()
 
-    if args.pipeline or args.train_pipeline or args.groups or not args.serve:
-        raise SystemExit(_TRAINING_LATER)
-    if args.device == "cuda":
-        import torch
-
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                "--device cuda (the default) needs a CUDA card and "
-                "torch.cuda.is_available() is False; pass --device cpu to "
-                "run the plain PyTorch conv on the CPU"
-            )
+    if args.groups:
+        raise SystemExit(_GROUPS_LATER)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "--device cuda (the default) needs a CUDA card and "
+            "torch.cuda.is_available() is False; pass --device cpu to "
+            "run the plain PyTorch conv on the CPU"
+        )
     slowdowns = [float(s) for s in args.slowdowns.split(",")]
     backends = args.backends.split(",") if args.backends else None
     transport = "tcp" if args.expected_slaves is not None else args.transport
+    common = dict(
+        device=args.device, microbatches=args.microbatches, c1=args.c1,
+        c2=args.c2, partition=args.partition, wire_dtype=args.wire_dtype,
+        wire_codec=args.wire_codec, weight_cache=not args.no_weight_cache,
+        bandwidth_mbps=args.bandwidth_mbps, transport=transport,
+        expected_slaves=args.expected_slaves, listen_host=args.listen_host,
+        listen_port=args.listen_port, heartbeat_s=args.heartbeat_s,
+    )
     try:
-        rec, _ = run_serve(
-            slowdowns, backends, device=args.device,
-            microbatches=args.microbatches, c1=args.c1, c2=args.c2,
-            requests=args.requests, deadline_s=args.deadline_s,
-            max_batch=args.max_batch, image_size=args.image_size,
-            partition=args.partition, wire_dtype=args.wire_dtype,
-            wire_codec=args.wire_codec,
-            weight_cache=not args.no_weight_cache,
-            bandwidth_mbps=args.bandwidth_mbps, transport=transport,
-            expected_slaves=args.expected_slaves,
-            listen_host=args.listen_host, listen_port=args.listen_port,
-            heartbeat_s=args.heartbeat_s,
-        )
+        if args.serve:
+            rec, _ = run_serve(
+                slowdowns, backends, requests=args.requests,
+                deadline_s=args.deadline_s, max_batch=args.max_batch,
+                image_size=args.image_size, **common,
+            )
+            ok = rec["all_ok"]
+        else:
+            rec, _ = run_hetero(
+                slowdowns, backends, pipeline=args.pipeline,
+                train_pipeline=args.train_pipeline, batch=args.batch,
+                steps=args.steps, **common,
+            )
+            ok = bool(np.isfinite(rec["losses"]).all())
         if args.out:
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
     except BaseException:
         traceback.print_exc()
         _clean_exit(1)
-    _clean_exit(0 if rec["all_ok"] else 1)
+    _clean_exit(0 if ok else 1)
 
 
 if __name__ == "__main__":

@@ -49,6 +49,8 @@ def test_entry_points_load_no_jax_and_no_repro_at_run_time():
         "import repro_torch.launch.hetero, repro_torch.core.cluster.protocol\n"
         "import repro_torch.core.backends, repro_torch.serve.server\n"
         "import repro_torch.kernels.ops, repro_torch.convert\n"
+        "import repro_torch.models.cnn, repro_torch.data.pipeline\n"
+        "import repro_torch.configs.cifar_cnn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

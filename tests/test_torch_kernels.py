@@ -1,29 +1,39 @@
-"""The port's conv2d (repro_torch/kernels) against the JAX package's
-Pallas kernel.
+"""The port's conv2d kernels (repro_torch/kernels) against the JAX
+package's Pallas kernels: forward K1, dX K2 and dW K3.
 
 The same numpy inputs, made from a seed, go through
-``repro.kernels.conv2d.conv2d_pallas`` in interpret mode (the kernel
-body runs in Python on the CPU, as tests/test_kernels.py runs it) and
-through the port's plain version ``conv2d_ref`` and its kernel wrapper
-``conv2d`` — which, given CPU tensors, runs the plain version.  The
-hand-written CUDA kernel itself runs only on the card:
-tests/test_torch_gpu.py holds it against ``conv2d_ref`` there.
+``repro.kernels.conv2d``'s ``conv2d_pallas``, ``conv2d_dx_pallas`` and
+``conv2d_dw_pallas`` in interpret mode (the kernel body runs in Python
+on the CPU, as tests/test_kernels.py runs it) and through the port's
+plain versions (``conv2d_ref``, ``conv2d_dx_ref``, ``conv2d_dw_ref``)
+and kernel wrappers — which, given CPU tensors, run the plain versions.
+The hand-written CUDA kernels themselves run only on the card:
+tests/test_torch_gpu.py holds them against their plain versions there.
 
 Tolerances are tests/test_kernels.py's: fp32 atol 2e-4, bf16 atol 5e-2,
 both with rtol 0.05 (the two sides sum the taps in different orders,
 and bf16 inputs are rounded by each framework).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core.backends import get_backend as jax_get_backend
+from repro.core.backends import make_conv_fn
+from repro.core.cluster.protocol import bwd_shard as jax_bwd_shard
 from repro.core.cluster.protocol import conv_shard as jax_conv_shard
-from repro.kernels.conv2d import conv2d_pallas
+from repro.kernels.conv2d import conv2d_dw_pallas, conv2d_dx_pallas, conv2d_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.conv2d import conv2d
-from repro_torch.kernels.ref import conv2d_ref, ieee_fp32_matmul
+from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dw_split
+from repro_torch.kernels.ref import (
+    conv2d_dw_ref,
+    conv2d_dx_ref,
+    conv2d_ref,
+    ieee_fp32_matmul,
+)
+from repro_torch.models.cnn import conv_fn_for_backend
 
 DTYPES = {
     "float32": (jnp.float32, torch.float32, 2e-4),
@@ -38,6 +48,9 @@ SHAPES = [
     (2, 1, 8, 4, 8, 5),      # a one-row strip
     (2, 8, 8, 6, 21, 5),     # Cout not a multiple of 16
 ]
+# the wrappers' empty cases besides Cout 0: no pixels (a zero-row batch
+# shard, whose dW is zeros of the full shape) and no input channels
+EMPTY_SHAPES = [(0, 8, 8, 4, 6, 3), (2, 8, 8, 0, 6, 3)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,6 +81,98 @@ def _pallas(x, wk, jdtype):
         cout_tile=16, interpret=True,
     )
     return np.asarray(y.astype(jnp.float32))
+
+
+def _bwd_pallas(x, wk, g, jdtype):
+    """The JAX package's dX and dW on these inputs, as float32 numpy.  A
+    0-kernel shard never reaches the Pallas kernels (their Cout tiling
+    divides by Cout): the JAX protocol's ``bwd_shard`` answers it."""
+    if wk.shape[-1] == 0:
+        return jax_bwd_shard(jax_get_backend("pallas:interpret"), x, wk, g)
+    jx, jw, jg = (jnp.asarray(a).astype(jdtype) for a in (x, wk, g))
+    k = wk.shape[0]
+    dx = conv2d_dx_pallas(jg, jw, cin_tile=16, interpret=True)
+    dw = conv2d_dw_pallas(jx, jg, k, k, cout_tile=16, interpret=True)
+    return np.asarray(dx.astype(jnp.float32)), np.asarray(dw)
+
+
+def _grad(b, h, w, cout, seed=2):
+    return np.random.default_rng(seed).standard_normal((b, h, w, cout)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,w,cin,cout,k", SHAPES)
+def test_conv2d_bwd_refs_match_pallas(b, h, w, cin, cout, k, dtype):
+    """conv2d_dx_ref against conv2d_dx_pallas (in g's dtype) and
+    conv2d_dw_ref against conv2d_dw_pallas (always float32)."""
+    jdtype, tdtype, atol = DTYPES[dtype]
+    x, wk = _inputs(b, h, w, cin, cout, k)
+    g = _grad(b, h, w, cout)
+    dx_want, dw_want = _bwd_pallas(x, wk, g, jdtype)
+    tx, tw, tg = (torch.from_numpy(a).to(tdtype) for a in (x, wk, g))
+    dx = conv2d_dx_ref(tg, tw)
+    dw = conv2d_dw_ref(tx, tg, k, k)
+    assert dx.dtype == tdtype and tuple(dx.shape) == (b, h, w, cin)
+    assert dw.dtype == torch.float32 and tuple(dw.shape) == (k, k, cin, cout)
+    np.testing.assert_allclose(dx.float().numpy(), dx_want, atol=atol, rtol=0.05)
+    np.testing.assert_allclose(dw.numpy(), dw_want, atol=atol, rtol=0.05)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k", SHAPES + EMPTY_SHAPES)
+def test_bwd_wrappers_on_cpu_are_the_plain_versions(b, h, w, cin, cout, k):
+    """On CPU tensors conv2d_dx and conv2d_dw (and their ops entries)
+    run the plain versions, exactly, and launch nothing; empty shapes
+    give zeros of the full shape."""
+    x, wk = _inputs(b, h, w, cin, cout, k, seed=3)
+    tx, tw, tg = (torch.from_numpy(a) for a in (x, wk, _grad(b, h, w, cout)))
+    before = (conv2d_dx.launches, conv2d_dw.launches)
+    dx = ops.conv2d_dx(tg, tw)
+    dw = ops.conv2d_dw(tx, tg, k, k)
+    assert (conv2d_dx.launches, conv2d_dw.launches) == before
+    assert torch.equal(dx, conv2d_dx_ref(tg, tw))
+    assert torch.equal(dw, conv2d_dw_ref(tx, tg, k, k))
+    assert tuple(dx.shape) == (b, h, w, cin) and tuple(dw.shape) == (k, k, cin, cout)
+    if b == 0 or cout == 0:
+        assert not dx.any() and not dw.any()
+    if b == 0:
+        assert dw.shape == (k, k, cin, cout) and dw.numel() > 0
+
+
+@pytest.mark.parametrize("x_shape,cout,splits", [
+    ((32, 32, 32, 3), 500, 17),     # C1: 16 output tiles, so the pixels split
+    ((8, 16, 16, 500), 1500, 1),    # C2: 4,704 tiles fill the card alone
+    ((1, 1, 8, 4), 8, 1),           # fewer pixels than one chunk
+    ((8, 7, 16, 500), 437, 1),
+])
+def test_dw_split_covers_the_pixels_once(x_shape, cout, splits):
+    """K3's pixel chunks: whole 16-pixel slabs, none empty, covering
+    B*H*W exactly once, enough for two blocks per SM of 132."""
+    got, chunk = dw_split(x_shape, 5, 5, cout, 132)
+    pixels = x_shape[0] * x_shape[1] * x_shape[2]
+    assert got == splits and chunk % 16 == 0
+    assert (got - 1) * chunk < pixels <= got * chunk
+    assert dw_split(x_shape, 5, 5, cout, 132) == (got, chunk)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k", [(2, 8, 8, 3, 5, 3), (2, 7, 6, 4, 21, 5)])
+def test_conv2d_function_grads_match_pallas_vjp(b, h, w, cin, cout, k):
+    """The port's differentiable conv (Conv2dFunction, through
+    ``conv_fn_for_backend("cuda")``, plain versions on the CPU) against
+    the JAX package's ``make_conv_fn("pallas")`` custom VJP: y, dX, dW
+    and d(bias) for one cotangent."""
+    x, wk = _inputs(b, h, w, cin, cout, k, seed=4)
+    bias = np.random.default_rng(5).standard_normal(cout).astype(np.float32)
+    g = _grad(b, h, w, cout, seed=6)
+    jfn = make_conv_fn("pallas", interpret=True)
+    y_want, vjp = jax.vjp(lambda xx, kk, bb: jfn({"kernel": kk, "bias": bb}, xx),
+                          jnp.asarray(x), jnp.asarray(wk), jnp.asarray(bias))
+    want = vjp(jnp.asarray(g))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, wk, bias))
+    y = conv_fn_for_backend("cuda")({"kernel": tw, "bias": tb}, tx)
+    got = torch.autograd.grad(y, (tx, tw, tb), torch.from_numpy(g))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_want), atol=2e-4, rtol=0)
+    for a, b_ in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=2e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -8,8 +8,9 @@
   conv layers and a 32-wide head: only summation orders differ).
 - Every partition axis of the port's cluster matches its single-device
   chain, forward (serving) and backward (the protocol's VJP ops).
-- The port's CLI serves on the CPU when asked, refuses training modes,
-  and never falls back to the CPU when asked for the card.
+- The port's CLI serves on the CPU when asked, refuses the two-tier
+  ``--groups`` topology, and never falls back to the CPU when asked for
+  the card.
 """
 import os
 import subprocess
@@ -201,8 +202,11 @@ def test_cli_serves_on_cpu():
 
 
 def test_cli_refuses_training_modes():
-    r = _cli("--train-pipeline", "--device", "cpu")
-    assert r.returncode != 0 and "later slice" in r.stderr
+    """The two-tier training topology waits for the hierarchy's port;
+    the flat training modes run (tests/test_torch_train.py)."""
+    r = _cli("--train-pipeline", "--device", "cpu", "--groups", "2x2")
+    assert r.returncode != 0 and "hierarchy.py" in r.stderr
+    assert "steps in" not in r.stdout
 
 
 def test_cli_cuda_without_a_card_is_an_error():
