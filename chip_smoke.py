@@ -38,10 +38,37 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``conv_fn_for_backend("cuda")`` (``Conv2dFunction``: K1, K2 and K3 on
    one device), held against the first float64 step;
 9. main-path shapes (train) — K1, K2 and K3 at every shape the train run
-   gave them, against their plain versions, timed in isolation.
+   gave them, against their plain versions, timed in isolation;
+10. kernel_attn — flash attention K4 against ``flash_attention_ref`` in
+   float64 on the card: tests/test_kernels.py's sweep (fp32/bf16, causal
+   on/off, window None/16), a GQA case, hymba-1.5b's prefill shape
+   (B 4, H 25 over KV 5, S = T = 2048, D 64, window 1024), a ragged
+   S = 2047 and one query against T = 1024; with median times of the
+   kernel, the plain version and ``F.scaled_dot_product_attention`` on
+   the same boolean mask (a yardstick the port never calls);
+11. kernel_ssd — the SSD scan K5 against ``ssd_chunked_ref`` in float64,
+   y and the final state: the test sweep, hymba's shape (B 4, S 2048,
+   H 50, P 64, N 16, chunk 256), a ragged S = 2000 and S shorter than
+   one chunk (no single PyTorch call computes SSD: no yardstick);
+12. lm_serve — the port's ``launch/serve.py`` path (``load`` +
+   ``ServeEngine.generate``) on ``hymba-1.5b --full`` in its own bf16:
+   batch 4, prompt 2048, 16 new tokens, greedy, inside a profiler trace.
+   K4 and K5 each launched once per layer (32) and each wrapper's count
+   equal to the trace's; then the same run again untraced, whose prefill
+   seconds, decode ms per token and tokens/s are the headline (the trace
+   gives the busy share); then generate's halves called one by one: the
+   prefill (32 launches each, and the shape of every call) and 4 decode
+   steps in a trace of their own (no launch; device events per step);
+13. lm_check — the same model at full width in fp32, prefill and 16
+   decode steps teacher-forced on the kernel path's tokens, the kernel
+   path against the plain path (the kernels' plain versions passed as
+   the model's ``attention_fn`` and ``ssd_fn``): logits within
+   ``LM_RTOL`` of the largest logit, and the prefill's cache;
+14. main-path shapes (lm_serve) — K4 and K5 at every shape the lm_serve
+   run gave them, timed in isolation.
 
 Every wrapper's launch count is set to 0 just before a main-path run
-(serve, train) and read just after.  Then, on lines of their own: the
+(serve, train, lm_serve) and read just after.  Then, on lines of their own: the
 ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -72,18 +99,30 @@ PEAK_BYTES_S = 3.35e12
 # tests/test_kernels.py's tolerances: fp32 atol 2e-4, bf16 atol 5e-2,
 # both with rtol 0.05 (different summation orders over up to 37,500 terms)
 TOL = {torch.float32: (2e-4, 0.05), torch.bfloat16: (5e-2, 0.05)}
+# K4 and K5 compute in fp32 and round a bf16 output once, so it is held
+# against the float64 plain version rounded to bf16: the two sit at most
+# one bf16 step (2^-7 of the value) apart, which rtol 1e-2 holds, and atol
+# 1e-3 holds outputs near 0.  TOL's bf16 atol of 5e-2 would be as large as
+# a typical attention output over 1024 keys (std ~ sqrt(e/1024) ~ 0.05).
+BF16_OUT_TOL = (1e-3, 1e-2)
 SERVE_ATOL = 1e-3
 # tests/test_train_pipeline.py's tolerances for a train step against the
 # single-device step: every updated param, and the loss
 PARAM_ATOL, LOSS_ATOL = 1e-4, 1e-5
 SEED = 0
+# lm_check: the kernel path's logits against the plain path's, max |diff|
+# over max |logit| (fp32 throughout; see PERF.md for the choice)
+LM_RTOL = 1e-3
 # the wrappers' kernels by trace symbol: the first counts launches, all
 # of them count time (K3 reduces its pixel chunks in a second kernel)
 SYMBOLS = {
     "conv2d_fwd": ("conv2d_fwd_kernel",),
     "conv2d_dx": ("conv2d_dx_kernel",),
     "conv2d_dw": ("conv2d_dw_kernel", "conv2d_dw_reduce_kernel"),
+    "flash_attention": ("flash_attn_fwd_kernel",),
+    "ssd": ("ssd_fwd_kernel",),
 }
+CONV_KINDS = ("conv2d_fwd", "conv2d_dx", "conv2d_dw")
 
 
 def emit(obj: dict) -> None:
@@ -191,10 +230,13 @@ class Kernels:
 
     def __init__(self):
         from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx
+        from repro_torch.kernels.flash_attn import flash_attention
         from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
+        from repro_torch.kernels.ssd import ssd
 
         self.wrapper = {"conv2d_fwd": conv2d, "conv2d_dx": conv2d_dx,
-                        "conv2d_dw": conv2d_dw}
+                        "conv2d_dw": conv2d_dw, "flash_attention": flash_attention,
+                        "ssd": ssd}
         self.conv2d_ref = conv2d_ref
         self.calls = {  # (kernel, plain version)
             "conv2d_fwd": (lambda x, w, g: conv2d(x, w),
@@ -304,8 +346,9 @@ def reset_counts(ks: Kernels) -> None:
         fn.launches = 0
 
 
-def read_counts(ks: Kernels) -> dict:
-    return {name: fn.launches for name, fn in ks.wrapper.items()}
+def read_counts(ks: Kernels, names=None) -> dict:
+    return {name: fn.launches for name, fn in ks.wrapper.items()
+            if names is None or name in names}
 
 
 def path_shapes(ks, kind, dev, shapes, phase, path):
@@ -339,6 +382,17 @@ def float64_steps(cfg, batch, steps, lr, dev):
     return losses, history
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def params_err(got, want) -> float:
     return max((got[l][n].double() - want[l][n]).abs().max().item()
                for l in want for n in want[l])
@@ -349,12 +403,20 @@ def total(recs, key):
     return sum(r["launches"] * r[key] for r in recs)
 
 
-def entry(kind, source, replaces, runs):
+def library_total(recs):
+    """The yardstick summed over a run's launches, or None where no one
+    PyTorch call computes the kernel's function."""
+    if any(r["library_ms"] is None for r in recs):
+        return None
+    return total(recs, "library_ms")
+
+
+def entry(kind, source, replaces, runs, dtype=torch.float32):
     """One kernels-line entry over the main-path runs that launched
-    it: ``runs`` maps a path to (its shape records, its trace)."""
+    it: ``runs`` maps a path to (its shape records, its trace); the
+    bound takes the peak rate of the runs' input ``dtype``."""
     recs = [r for rs, _ in runs.values() for r in rs]
-    bound_ms, bound_by = bound(total(recs, "flops"), total(recs, "bytes"),
-                               torch.float32)
+    bound_ms, bound_by = bound(total(recs, "flops"), total(recs, "bytes"), dtype)
     return {
         "name": kind, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(tr["kernels"][kind]["launches"] for _, tr in runs.values()),
@@ -362,20 +424,228 @@ def entry(kind, source, replaces, runs):
         "ms": sum(tr["kernels"][kind]["ms"] for _, tr in runs.values()),
         "plain_ms": total(recs, "plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": total(recs, "library_ms"),
+        "library_ms": library_total(recs),
         "isolated_ms": total(recs, "ms"),
         "by_path": {path: {"launches": tr["kernels"][kind]["launches"],
                            "ms": tr["kernels"][kind]["ms"],
                            "plain_ms": total(rs, "plain_ms"),
-                           "library_ms": total(rs, "library_ms"),
+                           "library_ms": library_total(rs),
                            "bound_ms": bound(total(rs, "flops"), total(rs, "bytes"),
-                                             torch.float32)[0]}
+                                             dtype)[0]}
                     for path, (rs, tr) in runs.items()},
         "per": "all launches of the main-path runs named in by_path; ms: "
                "the profiler trace of those runs; plain_ms, library_ms, "
                "isolated_ms: each shape's isolated median times its "
                "launch count, summed",
     }
+
+
+# -- K4 and K5 ---------------------------------------------------------------
+
+
+def itemsize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def live_pairs(s, t, causal, window) -> int:
+    """(query, key) pairs the masks leave live for one (batch, head):
+    query i at position t - s + i sees keys max(0, pos - window + 1) ..
+    pos (causal) or .. t - 1."""
+    total = 0
+    for i in range(s):
+        pos = t - s + i
+        hi = min(t - 1, pos) if causal else t - 1
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attn_work(b, h, kv, s, t, d, causal, window, dtype):
+    """(operations, bytes) of one flash attention: 4*D per live pair
+    (q.k and p.v), q, k, v read once and o written once."""
+    flops = 4.0 * d * b * h * live_pairs(s, t, causal, window)
+    nbytes = itemsize(dtype) * (2 * b * h * s * d + 2 * b * kv * t * d)
+    return flops, nbytes
+
+
+def ssd_work(b, s, h, g, p, n, chunk, dtype):
+    """(operations, bytes) of one SSD scan: per chunk of Lv steps, the
+    causal triangle's Lv(Lv+1)/2 pairs each cost 2(N + P) (scores and
+    scores x dt*x), the inter-chunk term and the state update 2*Lv*P*N
+    each; x, B, C in the input dtype, dt and a float32 read once, y and
+    the fp32 state written once."""
+    chunk = min(chunk, s)
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        lv = min(chunk, s - t0)
+        flops += 2.0 * lv * (lv + 1) / 2 * (n + p) + 4.0 * lv * p * n
+    flops *= b * h
+    nbytes = (itemsize(dtype) * (2 * b * s * h * p + 2 * b * s * g * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    return flops, nbytes
+
+
+def sdpa_call(q, k, v, causal, window):
+    """``F.scaled_dot_product_attention`` on the same inputs and boolean
+    mask, with the kv heads repeated outside the timed call: the
+    yardstick of K4, never called by the port."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import attention_mask
+
+    g = q.shape[1] // k.shape[1]
+    kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+
+
+def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phase):
+    """K4 against its plain version in float64 on one shape (rounded to
+    bf16 for a bf16 output: ``BF16_OUT_TOL``), q, k, v given as
+    transposed views of (B, S, heads, D) tensors as the model gives them;
+    fail on a mismatch.  Returns the shape's record."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + t + d + h)
+    q, k, v = (torch.randn((b, n, heads, d), generator=gen, device=dev).to(dtype)
+               .transpose(1, 2) for n, heads in ((s, h), (t, kv), (t, kv)))
+    fn = ks.wrapper["flash_attention"]
+    got = fn(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                               window=window)
+    if tuple(got.shape) != (b, h, s, d) or got.dtype != dtype:
+        fail(f"flash_attention {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        fail(f"flash_attention {label}: non-finite output")
+    atol, rtol = TOL[dtype]
+    if dtype == torch.bfloat16:
+        want, (atol, rtol) = want.to(dtype).double(), BF16_OUT_TOL
+    err = (got.double() - want).abs().max().item()
+    if not torch.allclose(got.double(), want, atol=atol, rtol=rtol):
+        fail(f"flash_attention {label}: kernel vs its plain version max abs err "
+             f"{err} beyond atol {atol} rtol {rtol}")
+    del want
+    flops, nbytes = attn_work(b, h, kv, s, t, d, causal, window, dtype)
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    reps = reps_for(flops)
+    return {
+        "phase": phase, "kernel": "flash_attention", "case": label,
+        "dtype": str(dtype).split(".")[-1],
+        "shape": {"B": b, "H": h, "KV": kv, "S": s, "T": t, "D": d,
+                  "causal": causal, "window": window},
+        "max_abs_err": err, "atol": atol, "rtol": rtol,
+        "ms": events_ms(lambda: fn(q, k, v, causal=causal, window=window), reps),
+        "plain_ms": events_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), reps),
+        "library_ms": events_ms(sdpa_call(q, k, v, causal, window), reps),
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+    }
+
+
+def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase):
+    """K5 against its plain version in float64 on one shape, y and the
+    fp32 final state at 10x the fp32 kernel sweep's atol
+    (tests/test_kernels.py's SSD rule), a bf16 y against the reference
+    rounded to bf16 at that atol and ``BF16_OUT_TOL``'s rtol; fail on a
+    mismatch.  Returns the shape's record."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + h + p + n)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    fn = ks.wrapper["ssd"]
+    y, state = fn(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    y_want, s_want = ssd_chunked_ref(x.double(), dt.double(), a.double(), bm.double(),
+                                     cm.double(), min(chunk, s))
+    if (tuple(y.shape) != (b, s, h, p) or y.dtype != dtype
+            or tuple(state.shape) != (b, h, p, n) or state.dtype != torch.float32):
+        fail(f"ssd {label}: shapes/dtypes {tuple(y.shape)} {y.dtype} "
+             f"{tuple(state.shape)} {state.dtype}")
+    if not (torch.isfinite(y).all() and torch.isfinite(state).all()):
+        fail(f"ssd {label}: non-finite output")
+    atol, rtol = 10 * TOL[torch.float32][0], TOL[torch.float32][1]
+    y_rtol = rtol
+    if dtype == torch.bfloat16:
+        y_want, y_rtol = y_want.to(dtype).double(), BF16_OUT_TOL[1]
+    err = (y.double() - y_want).abs().max().item()
+    s_err = (state.double() - s_want).abs().max().item()
+    if not (torch.allclose(y.double(), y_want, atol=atol, rtol=y_rtol)
+            and torch.allclose(state.double(), s_want, atol=atol, rtol=rtol)):
+        fail(f"ssd {label}: kernel vs its plain version max abs err y {err} state "
+             f"{s_err} beyond atol {atol} rtol {y_rtol} (y) {rtol} (state)")
+    flops, nbytes = ssd_work(b, s, h, g, p, n, chunk, dtype)
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    reps = reps_for(flops)
+    return {
+        "phase": phase, "kernel": "ssd", "case": label,
+        "dtype": str(dtype).split(".")[-1],
+        "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk},
+        "max_abs_err": max(err, s_err), "max_abs_err_y": err, "max_abs_err_state": s_err,
+        "atol": atol, "rtol": rtol, "rtol_y": y_rtol,
+        "ms": events_ms(lambda: fn(x, dt, a, bm, cm, chunk=chunk), reps),
+        "plain_ms": events_ms(lambda: ssd_chunked_ref(x, dt, a, bm, cm, min(chunk, s)),
+                              reps),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+    }
+
+
+def lm_check(dev, arch, batch, prompt, new, seed):
+    """The model at full width in fp32, the kernel path (K4, K5) against
+    the plain path (their plain versions passed as ``attention_fn`` and
+    ``ssd_fn``) on the same weights: the prefill's logits and cache, then
+    ``new`` decode steps teacher-forced on the kernel path's greedy
+    tokens.  Returns the record; fails beyond ``LM_RTOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch).with_(dtype="float32", param_dtype="float32")
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
+    plain = {"attention_fn": flash_attention_ref, "ssd_fn": ssd_chunked_ref}
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lk, ck = api.prefill(params, {"tokens": tokens}, cache_len=prompt + new)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lp, cp = api.prefill(params, {"tokens": tokens}, cache_len=prompt + new, **plain)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not torch.isfinite(lk).all():
+            fail("lm_check: non-finite prefill logits on the kernel path")
+        prefill_rel = rel(lk, lp)
+        cache_rel = {key: rel(ck[key].float(), cp[key].float())
+                     for key in ("k", "v", "conv", "ssm")}
+        step_rel = []
+        nxt = lk.argmax(-1)
+        for _ in range(new):
+            lk, ck = api.decode_step(params, ck, nxt[:, None])
+            lp, cp = api.decode_step(params, cp, nxt[:, None])
+            step_rel.append(rel(lk, lp))
+            nxt = lk.argmax(-1)
+    rec = {"phase": "lm_check", "arch": arch, "dtype": "float32", "batch": batch,
+           "prompt_len": prompt, "decode_steps": new,
+           "prefill_rel_err": prefill_rel, "cache_rel_err": cache_rel,
+           "decode_rel_err_by_step": step_rel, "rtol": LM_RTOL,
+           "prefill_kernel_s": t1 - t0, "prefill_plain_s": t2 - t1,
+           "max_logit": float(lp.abs().max())}
+    worst = max([prefill_rel, *cache_rel.values(), *step_rel])
+    if worst > LM_RTOL:
+        fail(f"lm_check: kernel path vs plain path relative err {worst} > {LM_RTOL}: {rec}")
+    del params, ck, cp
+    return rec
 
 
 def main() -> int:
@@ -546,7 +816,7 @@ def main() -> int:
         run_s = time.perf_counter() - t_run
         train_counts = read_counts(ks)
     train_trace = device_trace(prof, run_s)
-    for kind, n in train_counts.items():
+    for kind, n in read_counts(ks, CONV_KINDS).items():
         if n == 0:
             fail(f"train: the {kind} kernel was never launched on the main path")
         if train_trace["kernels"][kind]["launches"] != n:
@@ -584,12 +854,12 @@ def main() -> int:
 
     # -- 8. one autograd step through Conv2dFunction on one device -----------
     params, imgs, labels = train_inputs(cfg, batch, dev)
-    before = read_counts(ks)
+    before = read_counts(ks, CONV_KINDS)
     conv_fn = conv_fn_for_backend("cuda")
     new, loss, _ = sgd_step(
         params, lambda q: cnn_loss(q, imgs, labels, cfg=cfg, conv_fn=conv_fn), lr)
     torch.cuda.synchronize()
-    used = {k: n - before[k] for k, n in read_counts(ks).items()}
+    used = {k: n - before[k] for k, n in read_counts(ks, CONV_KINDS).items()}
     if min(used.values()) == 0:
         fail(f"train_autograd: a kernel was not launched: {used}")
     a_loss_err = abs(loss - ref_losses[0])
@@ -610,6 +880,163 @@ def main() -> int:
                                  "main_path_shape", "train"),
     }
 
+    # -- 10. K4 against its plain version ------------------------------------
+    hymba_attn = (4, 25, 5, 2048, 2048, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_, t_, d_ in ((32, 32, 16), (48, 80, 32), (17, 33, 8)):
+            for causal in (True, False):
+                for window in (None, 16):
+                    emit(check_attn(ks, dev, 2, 2, 2, s_, t_, d_, causal, window, dtype,
+                                    label="sweep", phase="kernel_attn"))
+        emit(check_attn(ks, dev, 2, 6, 2, 40, 70, 64, True, 16, dtype,
+                        label="GQA 6/2", phase="kernel_attn"))
+        emit(check_attn(ks, dev, *hymba_attn, True, 1024, dtype,
+                        label="hymba prefill", phase="kernel_attn"))
+    emit(check_attn(ks, dev, 4, 25, 5, 2047, 2047, 64, True, 1024, torch.bfloat16,
+                    label="ragged S 2047", phase="kernel_attn"))
+    emit(check_attn(ks, dev, 4, 25, 5, 1, 1024, 64, True, 1024, torch.bfloat16,
+                    label="S 1 against T 1024", phase="kernel_attn"))
+
+    # -- 11. K5 against its plain version ------------------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_, h_, p_, n_, chunk in ((32, 2, 8, 4, 8), (48, 3, 16, 8, 16), (25, 1, 4, 4, 8)):
+            emit(check_ssd(ks, dev, 2, s_, h_, h_, p_, n_, chunk, dtype,
+                           label="sweep", phase="kernel_ssd"))
+    for label, s_ in (("hymba prefill", 2048), ("ragged S 2000", 2000),
+                      ("S 100, shorter than a chunk", 100)):
+        emit(check_ssd(ks, dev, 4, s_, 50, 1, 64, 16, 256, torch.float32,
+                       label=label, phase="kernel_ssd"))
+
+    # -- 12. serve hymba-1.5b at full width through the port -----------------
+    from repro_torch.launch.serve import load
+
+    arch, lm_batch, prompt, new = "hymba-1.5b", 4, 2048, 16
+    engine, lm_inputs = load(arch, full=True, seed=SEED, batch=lm_batch,
+                             prompt_len=prompt, device=dev)
+    api, lm_cfg = engine.api, engine.api.cfg
+    layers = lm_cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        tokens = engine.generate(lm_inputs, max_new_tokens=new, timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        lm_counts = read_counts(ks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lm_trace = device_trace(prof, run_s)
+    for kind in ("flash_attention", "ssd"):
+        if lm_counts[kind] != layers:
+            fail(f"lm_serve: {kind} launched {lm_counts[kind]} times, want {layers}")
+        if lm_trace["kernels"][kind]["launches"] != lm_counts[kind]:
+            fail(f"lm_serve: the trace holds {lm_trace['kernels'][kind]['launches']} "
+                 f"{kind} launches, the wrapper counted {lm_counts[kind]}")
+    if any(lm_counts[k] for k in CONV_KINDS):
+        fail(f"lm_serve: a conv kernel ran on the language model's path: {lm_counts}")
+    if (tuple(tokens.shape) != (lm_batch, new) or int(tokens.min()) < 0
+            or int(tokens.max()) >= lm_cfg.vocab_size):
+        fail(f"lm_serve: tokens {tuple(tokens.shape)} or their range")
+    # the same run again outside the profiler, whose per-launch cost
+    # inflates decode's thousands of small launches: the headline times
+    untraced = {}
+    reset_counts(ks)
+    t_run = time.perf_counter()
+    engine.generate(lm_inputs, max_new_tokens=new, timings=untraced)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t_run
+    if read_counts(ks, ("flash_attention", "ssd")) != {"flash_attention": layers,
+                                                      "ssd": layers}:
+        fail(f"lm_serve: the untraced run launched {read_counts(ks)}")
+    # generate's two halves called one by one on the same inputs: the
+    # prefill, with observers passed as the model's attention_fn and ssd_fn
+    # (the shape of each call, then the wrapper), and decode steps in a
+    # trace of their own (their launches and device events per step)
+    attn_shapes, ssd_shapes = collections.Counter(), collections.Counter()
+
+    def observed_attn(q, k, v, *, causal, window):
+        attn_shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                     q.shape[3], causal, window, q.dtype)] += 1
+        return ks.wrapper["flash_attention"](q, k, v, causal=causal, window=window)
+
+    def observed_ssd(x, dt, a, bm, cm, *, chunk):
+        ssd_shapes[tuple(x.shape[:3]) + (bm.shape[2], x.shape[3], bm.shape[3], chunk,
+                                         x.dtype)] += 1
+        return ks.wrapper["ssd"](x, dt, a, bm, cm, chunk=chunk)
+
+    steps = 4
+    with torch.inference_mode():
+        reset_counts(ks)
+        logits, cache = api.prefill(engine.params, lm_inputs, cache_len=prompt + new,
+                                    attention_fn=observed_attn, ssd_fn=observed_ssd)
+        prefill_counts = read_counts(ks, ("flash_attention", "ssd"))
+        if not torch.isfinite(logits).all():
+            fail("lm_serve: non-finite prefill logits")
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as dprof:
+            reset_counts(ks)
+            t_run = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = api.decode_step(engine.params, cache, nxt[:, None])
+                nxt = logits.argmax(-1)
+            torch.cuda.synchronize()
+            decode_traced_s = time.perf_counter() - t_run
+            decode_counts = read_counts(ks, ("flash_attention", "ssd"))
+    del cache
+    decode_trace = device_trace(dprof, decode_traced_s)
+    if prefill_counts != {"flash_attention": layers, "ssd": layers}:
+        fail(f"lm_serve: the prefill launched {prefill_counts}, want {layers} each")
+    if any(decode_counts.values()) or any(decode_trace["kernels"][k]["launches"]
+                                          for k in ("flash_attention", "ssd")):
+        fail(f"lm_serve: decode launched {decode_counts}")
+    decode_ms = untraced["decode_s"] / untraced["decode_steps"] * 1e3
+    events_per_step = decode_trace["device_events"] / steps
+    emit({"phase": "lm_serve", "arch": arch, "full": True,
+          "dtype": str(lm_cfg.compute_dtype).split(".")[-1],
+          "params_b": sum(t.numel() for t in _leaves(engine.params)) / 1e9,
+          "batch": lm_batch, "prompt_len": prompt, "new_tokens": new,
+          "prefill_s": untraced["prefill_s"], "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": lm_batch * 1e3 / decode_ms,
+          "tokens_per_s": lm_batch * new / untraced_s, "run_s": untraced_s,
+          "traced": {"prefill_s": timings["prefill_s"],
+                     "decode_ms_per_token":
+                         timings["decode_s"] / timings["decode_steps"] * 1e3,
+                     "run_s": run_s},
+          "peak_memory_gb": peak_gb, "launches": lm_counts,
+          "prefill_launches": prefill_counts, "decode_launches": decode_counts,
+          "trace": lm_trace,
+          "decode_trace": {"steps": steps, "device_events_per_step": events_per_step,
+                           "traced_ms_per_step": decode_traced_s / steps * 1e3,
+                           "busy_ms_per_step": decode_trace["busy_ms"] / steps,
+                           "busy_share": decode_trace["busy_share"],
+                           "untraced_us_per_device_event":
+                               decode_ms * 1e3 / events_per_step},
+          "tokens_head": tokens[:2, :8].tolist()})
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- 13. the kernel path against the plain path, fp32 at full width ------
+    emit(lm_check(dev, arch, lm_batch, prompt, new, SEED))
+    torch.cuda.empty_cache()
+
+    # -- 14. K4 and K5 at every shape the lm_serve run gave them -------------
+    attn_recs, ssd_recs = [], []
+    for (b_, h_, kv_, s_, t_, d_, causal, window, dtype), n in sorted(
+            attn_shapes.items(), key=str):
+        r = check_attn(ks, dev, b_, h_, kv_, s_, t_, d_, causal, window, dtype,
+                       label=f"lm_serve x{n}", phase="main_path_shape")
+        r.update(launches=n, path="lm_serve")
+        emit(r)
+        attn_recs.append(r)
+    for (b_, s_, h_, g_, p_, n_, chunk, dtype), n in sorted(ssd_shapes.items(), key=str):
+        r = check_ssd(ks, dev, b_, s_, h_, g_, p_, n_, chunk, dtype,
+                      label=f"lm_serve x{n}", phase="main_path_shape")
+        r.update(launches=n, path="lm_serve")
+        emit(r)
+        ssd_recs.append(r)
+
     kernels = [
         entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
               "src/repro/kernels/conv2d.py:78",
@@ -621,6 +1048,12 @@ def main() -> int:
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
               {"train": (train_recs["conv2d_dw"], train_trace)}),
+        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
+              "src/repro/kernels/flash_attn.py:97",
+              {"lm_serve": (attn_recs, lm_trace)}, dtype=lm_cfg.compute_dtype),
+        entry("ssd", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
+              "src/repro/kernels/ssd.py:75",
+              {"lm_serve": (ssd_recs, lm_trace)}, dtype=torch.float32),
     ]
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):

@@ -6,6 +6,8 @@ of jax arrays; ``np.asarray`` on each leaf turns it into the numpy tree
 ``params_from_numpy`` takes, and ``params_to_numpy`` turns the port's
 tree of tensors back into one, so two trees compare leaf by leaf.
 Layouts are kept as they are: conv kernels HWIO, dense kernels (in, out).
+``lm_params_from_numpy`` does the same for the JAX package's ``init_lm``
+tree, whose blocks are stacked on a leading layer axis.
 """
 from __future__ import annotations
 
@@ -21,6 +23,24 @@ def params_from_numpy(tree, device) -> dict:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(torch.device(device))
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params_from_numpy(tree, cfg, device) -> dict:
+    """The port's decoder-only params from the JAX package's ``init_lm``
+    tree with numpy leaves: every leaf kept as it is (``wq`` (d, h, hd),
+    ``wo`` (h, hd, d), ``in_proj`` (d, 2*d_in + 2*g*n + nh), ...), except
+    that ``blocks``, stacked on a leading layer axis, becomes a list of
+    ``cfg.num_layers`` per-layer dicts."""
+    out = {k: params_from_numpy(v, device) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [params_from_numpy(_layer(tree["blocks"], i), device)
+                     for i in range(cfg.num_layers)]
+    return out
 
 
 def params_to_numpy(tree):

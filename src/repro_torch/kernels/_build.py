@@ -10,7 +10,7 @@ and the stream from ``torch.cuda.current_stream().cuda_stream``.
 
 The first conv runs at once on every in-process slave thread (the
 cluster's ``probe()``), so each library's build is serialised by its own
-lock (two sources still build side by side), and the library is
+lock (different sources still build side by side), and the library is
 installed by an atomic rename so that concurrent slave processes never
 load a half-written file.  Nothing here runs at import:
 the CPU tests import every module, and this host may have no ``nvcc``.
@@ -69,6 +69,23 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "conv2d_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "flash_attn_fwd": {
+        "flash_attn_fwd_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "flash_attn_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "ssd_fwd": {
+        "ssd_fwd_launch": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "ssd_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        "ssd_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
 
@@ -139,3 +156,13 @@ def conv2d_fwd_library() -> ctypes.CDLL:
 def conv2d_bwd_library() -> ctypes.CDLL:
     """The bound ``conv2d_bwd`` library (dX and dW), built on first call."""
     return build("conv2d_bwd").lib
+
+
+def flash_attn_fwd_library() -> ctypes.CDLL:
+    """The bound ``flash_attn_fwd`` library (K4), built on first call."""
+    return build("flash_attn_fwd").lib
+
+
+def ssd_fwd_library() -> ctypes.CDLL:
+    """The bound ``ssd_fwd`` library (K5), built on first call."""
+    return build("ssd_fwd").lib

@@ -1,0 +1,100 @@
+"""Flash attention on Hopper: the wrapper of the hand-written CUDA kernel
+``csrc/flash_attn_fwd.cu`` (K4).
+
+Counterpart of the Pallas TPU kernel ``repro/kernels/flash_attn.py::
+flash_attention_pallas``, with its contract: q (B, H, S, D) against k, v
+(B, KV, T, D), T >= S, queries right-aligned against the keys, causal
+and sliding-window masks on absolute positions, fp32 softmax statistics,
+the output in q's dtype.  KV may divide H (query head h reads kv head
+h // (H/KV)); with KV == H it is the Pallas contract exactly.
+
+What bounds it on an H100: 4*D operations per live (query, key) pair,
+so operations; the kernel runs IEEE fp32 FMA on the CUDA cores (fp32
+parity rules out TF32), so its bound is the fp32 rate.  Fully masked kv
+tiles are never visited, so a window W costs O(S*W).  Operands are read
+through their strides: the model's (B, S, H, D) projections come in as
+``transpose(1, 2)`` views, and the output is allocated (B, S, H, D) and
+returned as the same kind of view, so neither side copies.
+
+Tensors on the CPU go to the plain version (``ref.flash_attention_ref``);
+CUDA tensors launch the kernel or raise — there is no fallback.
+``flash_attention.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import flash_attn_fwd_library
+from repro_torch.kernels.conv2d import _DTYPE_CODE, _count, _on_cpu, _raise_on
+from repro_torch.kernels.ref import flash_attention_ref
+
+MAX_HEAD_DIM = 128
+
+
+def _row_strides(t: torch.Tensor):
+    """(batch, head, row) element strides of a (B, H, S, D) operand whose
+    last axis is contiguous (made so if it is not)."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Online-softmax attention: q (B, H, S, D), k and v (B, KV, T, D) ->
+    (B, H, S, D) in q's dtype.
+
+    All three float32 or all bfloat16 on one CUDA device (or all on the
+    CPU), T >= S >= 1, KV dividing H, D <= 128, ``window`` None or >= 1."""
+    if _on_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if not (q.is_cuda and k.is_cuda and v.is_cuda
+            and q.device == k.device == v.device):
+        raise ValueError(
+            f"flash_attention: operands must lie on one CUDA device (or all "
+            f"on the CPU), got {q.device}, {k.device} and {v.device}"
+        )
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"flash_attention: q, k and v must all be float32 or all "
+            f"bfloat16, got {q.dtype}, {k.dtype} and {v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: want q (B,H,S,D) and k, v (B,KV,T,D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
+        raise ValueError(
+            f"flash_attention: k, v {tuple(k.shape)} do not fit q "
+            f"{tuple(q.shape)} (same B and D, KV dividing H)"
+        )
+    if s == 0 or t < s:
+        raise ValueError(f"flash_attention: want T >= S >= 1, got S={s}, T={t}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {d} > {MAX_HEAD_DIM}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    q, qsb, qsh, qss = _row_strides(q)
+    k, ksb, ksh, kss = _row_strides(k)
+    v, vsb, vsh, vss = _row_strides(v)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lib = flash_attn_fwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.flash_attn_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, kv, s, t, d, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+            out.stride(0), out.stride(1), out.stride(2),
+            int(causal), 0 if window is None else int(window),
+            _DTYPE_CODE[q.dtype], stream,
+        )
+    _raise_on(code, lib, "flash_attn_fwd_error_string",
+              f"flash_attn_fwd for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    _count(flash_attention)
+    return out
+
+
+flash_attention.launches = 0

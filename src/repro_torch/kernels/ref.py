@@ -4,7 +4,8 @@ Each repeats its kernel's arithmetic with ordinary tensor operations and
 runs on whatever device its inputs lie on.  The CPU tests use them, the
 ``torch`` conv backend runs them, and ``chip_smoke.py`` holds each CUDA
 kernel against its plain version on the card.  They are references, not
-yardsticks of speed.
+yardsticks of speed.  ``ssd_ref``, the sequential recurrence, is the
+tests' oracle and no kernel's plain version.
 """
 from __future__ import annotations
 
@@ -120,3 +121,118 @@ def conv2d_dw_ref(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int) -> torch.T
                 xs = xp[:, i : i + h, j : j + wd, :].reshape(b * h * wd, cin)
                 dw[i, j] = xs.T @ gs
     return dw
+
+
+def attention_mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:
+    """(S, T) bool, True where query i (at position T - S + i) may see
+    key j under the causal and window masks."""
+    q_pos = torch.arange(s, device=device)[:, None] + (t - s)
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None) -> torch.Tensor:
+    """Attention with the Pallas kernel's contract, in q's dtype.
+
+    q: (B, H, S, D); k, v: (B, KV, T, D) with T >= S and KV dividing H
+    (query head h reads kv head h // (H/KV), the head order of the JAX
+    package's ``_split_gqa``).  Queries are right-aligned against the
+    keys (query i sits at position T - S + i); the causal and window
+    masks apply to those absolute positions.  Scores, softmax and the
+    weighted sum run in float32 (float64 stays float64) with masked
+    scores at -1e30, as ``repro/kernels/ref.py::flash_attention_ref``."""
+    acc_t = _acc_dtype(q, k, v)
+    group = q.shape[1] // k.shape[1]
+    kf = k.to(acc_t).repeat_interleave(group, dim=1)
+    vf = v.to(acc_t).repeat_interleave(group, dim=1)
+    scale = q.shape[-1] ** -0.5
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    with ieee_fp32_matmul(q.device):
+        s = (q.to(acc_t) @ kf.transpose(-1, -2)) * scale
+        s = s.masked_fill(~mask, -1e30)
+        out = torch.softmax(s, dim=-1) @ vf
+    return out.to(q.dtype)
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bmat: torch.Tensor, cmat: torch.Tensor, chunk: int):
+    """Chunked SSD scan (mamba-2), a copy of the JAX package's
+    ``repro/layers/mamba2.py::_ssd_chunked``.
+
+    x: (B, S, H, P); dt: (B, S, H), already softplus'd; a: (H,),
+    negative; bmat, cmat: (B, S, G, N) with G dividing H (head h reads
+    group h // (H/G)).  Returns (y (B, S, H, P) in x's dtype, the final
+    state (B, H, P, N) in float32; float64 inputs stay float64)."""
+    acc_t, out_t = _acc_dtype(x, bmat, cmat), x.dtype
+    bsz, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    x, dt, a = x.to(acc_t), dt.to(acc_t), a.to(acc_t)
+    bmat, cmat = bmat.to(acc_t), cmat.to(acc_t)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p)
+    dtc = dt.reshape(bsz, nc, chunk, h)
+    bh = bmat.reshape(bsz, nc, chunk, g, n).repeat_interleave(h // g, dim=3)
+    ch = cmat.reshape(bsz, nc, chunk, g, n).repeat_interleave(h // g, dim=3)
+
+    cum = torch.cumsum(dtc * a, dim=2)  # (B,nc,L,H) inclusive log-decay
+    total = cum[:, :, -1, :]  # (B,nc,H)
+    with ieee_fp32_matmul(x.device):
+        # intra-chunk: y[t] = sum_{u<=t} C_t.B_u exp(cum_t - cum_u) dt_u x_u
+        scores = torch.einsum("bclhn,bcuhn->bchlu", ch, bh)
+        ct = cum.permute(0, 1, 3, 2)  # (B,nc,H,L)
+        decay = ct[..., :, None] - ct[..., None, :]  # cum_t - cum_u
+        causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+        m = torch.exp(decay.masked_fill(~causal, -1e30))
+        xdt = xc * dtc[..., None]
+        y_intra = torch.einsum("bchlu,bcuhp->bclhp", scores * m, xdt)
+        # chunk states: S_c = sum_u exp(total - cum_u) B_u (dt_u x_u)
+        suffix = torch.exp(total[:, :, None, :] - cum)
+        state_c = torch.einsum("bclhn,bclh,bclhp->bchpn", bh, suffix, xdt)
+        st = torch.zeros((bsz, h, p, n), dtype=acc_t, device=x.device)
+        prev = []
+        for c in range(nc):  # inter-chunk recurrence, chunks in order
+            prev.append(st)
+            st = st * torch.exp(total[:, c])[:, :, None, None] + state_c[:, c]
+        prev_states = torch.stack(prev, dim=1)  # (B,nc,H,P,N)
+        y_inter = torch.einsum("bclhn,bchpn,bclh->bclhp", ch, prev_states,
+                               torch.exp(cum))
+    y = (y_intra + y_inter).reshape(bsz, nc * chunk, h, p)[:, :s]
+    return y.to(out_t), st
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            bmat: torch.Tensor, cmat: torch.Tensor):
+    """The sequential SSD recurrence, the exact oracle of the tests
+    (``repro/kernels/ref.py::ssd_ref``):
+
+        S_t = exp(dt_t a) S_{t-1} + dt_t x_t B_t^T;   y_t = S_t C_t
+
+    Same arguments as ``ssd_chunked_ref`` without the chunk.  Returns
+    (y (B, S, H, P) in x's dtype, the final state (B, H, P, N))."""
+    acc_t = _acc_dtype(x, bmat, cmat)
+    bsz, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    xf, dtf, af = x.to(acc_t), dt.to(acc_t), a.to(acc_t)
+    bh = bmat.to(acc_t).repeat_interleave(h // g, dim=2)
+    ch = cmat.to(acc_t).repeat_interleave(h // g, dim=2)
+    st = torch.zeros((bsz, h, p, n), dtype=acc_t, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af)  # (B,H)
+        st = st * decay[:, :, None, None] + torch.einsum(
+            "bhp,bhn,bh->bhpn", xf[:, t], bh[:, t], dtf[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", st, ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
+    return y.to(x.dtype), st

@@ -1,0 +1,113 @@
+"""Mamba-2 SSD chunked scan on Hopper: the wrapper of the hand-written
+CUDA kernel ``csrc/ssd_fwd.cu`` (K5).
+
+Counterpart of the Pallas TPU kernel ``repro/kernels/ssd.py::
+ssd_pallas``: per (batch, head), the chunks in order with an fp32
+(P, N) state; within a chunk the masked-decay intra-chunk product, the
+carried state's inter-chunk term, then the state update.  It returns
+``ssd_pallas``'s y and also the final state, which the model's prefill
+keeps for decode (the JAX package takes the same state from
+``_ssd_chunked`` on that path).  B and C come with their groups
+(B, S, G, N) and head h reads group h // (H/G); with G == H it is the
+Pallas contract's pre-expanded layout.
+
+What bounds it on an H100: about L*(N + P) operations per step for the
+intra-chunk term at chunk L, so operations, run in IEEE fp32 FMA on the
+CUDA cores; one block per (batch, head) walks the chunks in order, and
+the L x L score matrix is cut into 64 x 64 tiles of shared memory
+(L = 256 would need 256 KB, more than a block has).  Inputs are read
+through their strides (the model's slices of its projection), nothing
+is padded or expanded by a copy.
+
+Tensors on the CPU go to the plain version (``ref.ssd_chunked_ref``);
+CUDA tensors launch the kernel or raise — there is no fallback.
+``ssd.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import ssd_fwd_library
+from repro_torch.kernels.conv2d import _DTYPE_CODE, _count, _on_cpu, _raise_on
+from repro_torch.kernels.ref import ssd_chunked_ref
+
+MAX_HEAD_DIM = 128
+# bytes of dynamic shared memory one block may use (the kernel's own
+# limit: 227 KB less room for its static scratch)
+MAX_SMEM = 232448 - 1024
+
+
+def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+        cmat: torch.Tensor, *, chunk: int = 256):
+    """x (B, S, H, P), dt (B, S, H) softplus'd, a (H,) negative, bmat and
+    cmat (B, S, G, N) -> (y (B, S, H, P) in x's dtype, final state
+    (B, H, P, N) float32).
+
+    x, bmat and cmat all float32 or all bfloat16, dt and a float32, on one
+    CUDA device (or all on the CPU); G dividing H; P <= 128.  The chunk
+    is ``min(chunk, S)``, as in ``ssd_pallas``."""
+    if _on_cpu(x, dt, a, bmat, cmat):
+        return ssd_chunked_ref(x, dt, a, bmat, cmat, min(chunk, x.shape[1]))
+    ts = (x, dt, a, bmat, cmat)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError(
+            "ssd: operands must lie on one CUDA device (or all on the CPU), "
+            f"got {[str(t.device) for t in ts]}"
+        )
+    if not (x.dtype == bmat.dtype == cmat.dtype) or x.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"ssd: x, bmat and cmat must all be float32 or all bfloat16, got "
+            f"{x.dtype}, {bmat.dtype} and {cmat.dtype}"
+        )
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"ssd: dt and a must be float32, got {dt.dtype} and {a.dtype}")
+    if x.dim() != 4 or bmat.dim() != 4 or bmat.shape != cmat.shape:
+        raise ValueError(
+            f"ssd: want x (B,S,H,P) and bmat, cmat (B,S,G,N), got "
+            f"{tuple(x.shape)}, {tuple(bmat.shape)} and {tuple(cmat.shape)}"
+        )
+    b, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if (tuple(dt.shape) != (b, s, h) or tuple(a.shape) != (h,)
+            or tuple(bmat.shape[:2]) != (b, s) or g == 0 or h % g):
+        raise ValueError(
+            f"ssd: dt {tuple(dt.shape)}, a {tuple(a.shape)} or bmat "
+            f"{tuple(bmat.shape)} do not fit x {tuple(x.shape)}"
+        )
+    if s == 0 or p == 0 or n == 0 or p > MAX_HEAD_DIM or chunk < 1:
+        raise ValueError(f"ssd: want S, P, N, chunk >= 1 and P <= {MAX_HEAD_DIM}, "
+                         f"got x {tuple(x.shape)}, N={n}, chunk={chunk}")
+    chunk = min(chunk, s)
+    lib = ssd_fwd_library()
+    smem = lib.ssd_fwd_smem_bytes(chunk, p, n)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"ssd: chunk {chunk}, head_dim {p} and d_state {n} need {smem} "
+            f"bytes of shared memory per block, above {MAX_SMEM}"
+        )
+    x, dt, a, bmat, cmat = (_last_contiguous(t) for t in (x, dt, a, bmat, cmat))
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = lib.ssd_fwd_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), y.data_ptr(), state.data_ptr(),
+            b, s, h, g, p, n, chunk,
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            bmat.stride(0), bmat.stride(1), bmat.stride(2),
+            cmat.stride(0), cmat.stride(1), cmat.stride(2),
+            _DTYPE_CODE[x.dtype], stream,
+        )
+    _raise_on(code, lib, "ssd_fwd_error_string",
+              f"ssd_fwd for x {tuple(x.shape)} bmat {tuple(bmat.shape)} {x.dtype}")
+    _count(ssd)
+    return y, state
+
+
+ssd.launches = 0

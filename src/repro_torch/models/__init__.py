@@ -1,1 +1,3 @@
-"""The port's models: the paper's CIFAR CNN (``cnn.py``)."""
+"""The port's models: the paper's CIFAR CNN (``cnn.py``) and the
+decoder-only transformer of the model zoo (``transformer.py``, behind
+``registry.build_model``)."""

@@ -1,0 +1,57 @@
+"""Model registry of the port: a uniform ``ModelApi`` over the
+decoder-only families.
+
+Counterpart of ``repro/models/registry.py``.  ``build_model(cfg)``
+returns closures for init / forward / prefill / decode over
+``models/transformer.py`` (dense, ssm, hybrid).  The logical-axis trees
+the JAX launcher shards with come with sharding; the encoder-decoder
+family (whisper), MoE blocks and the VLM projector are not ported yet
+and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf_lib
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ModelConfig
+    # init(generator, device) -> params
+    init: Callable[..., Any]
+    # forward(params, batch, **fns) -> (logits, aux)
+    forward: Callable[..., Any]
+    # prefill(params, batch, *, cache_len, **fns) -> (logits, cache)
+    prefill: Callable[..., Any]
+    # decode_step(params, cache, tokens) -> (logits, cache)
+    decode_step: Callable[..., Any]
+    # init_cache(batch, seq_len, dtype=None, device=...) -> cache
+    init_cache: Callable[..., Any]
+
+
+def _lm_batch_forward(params, batch, *, cfg, **fns):
+    return tf_lib.lm_forward(params, batch["tokens"], cfg=cfg,
+                             patches=batch.get("patches"), **fns)
+
+
+def _lm_batch_prefill(params, batch, *, cfg, cache_len=None, **fns):
+    return tf_lib.lm_prefill(params, batch["tokens"], cfg=cfg,
+                             patches=batch.get("patches"), cache_len=cache_len, **fns)
+
+
+def build_model(cfg: ModelConfig) -> ModelApi:
+    """``**fns`` of ``forward`` and ``prefill``: ``attention_fn`` and
+    ``ssd_fn``, the kernels K4 and K5 unless given."""
+    tf_lib.check_supported(cfg)
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device: tf_lib.init_lm(generator, cfg, device),
+        forward=functools.partial(_lm_batch_forward, cfg=cfg),
+        prefill=functools.partial(_lm_batch_prefill, cfg=cfg),
+        decode_step=functools.partial(tf_lib.lm_decode_step, cfg=cfg),
+        init_cache=functools.partial(tf_lib.init_cache, cfg),
+    )

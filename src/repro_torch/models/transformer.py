@@ -1,0 +1,259 @@
+"""Decoder-only transformer of the port: the dense, ssm and hybrid
+families, full forward, prefill into a decode cache, and one-token
+decode.
+
+Counterpart of ``repro/models/transformer.py``.  Params are a nested
+dict of tensors in the JAX package's layouts, with ``blocks`` a list of
+per-layer dicts where the JAX package stacks the layers on a leading
+axis (``convert.lm_params_from_numpy`` maps one to the other).  The
+full-sequence functions take the attention and SSD functions as
+arguments, as ``models/cnn.py::cnn_forward`` takes its conv: by default
+``kernels.ops.flash_attention`` (K4) and ``kernels.ops.ssd`` (K5), the
+hand-written Hopper kernels on the card; their plain versions give the
+same model in plain torch.  Decode launches neither kernel.
+
+Not ported yet (ROADMAP.md §1): MoE blocks, the VLM projector's patch
+embeddings, caller-supplied positions and the encoder-decoder family;
+each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import flash_attention, ssd
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import mamba2 as mamba_lib
+from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_from_embedding
+from repro_torch.layers.linear import apply_dense, init_dense
+from repro_torch.layers.mlp import apply_mlp, init_mlp
+from repro_torch.layers.norm import apply_norm, init_norm
+
+_LATER = "is not ported yet (ROADMAP.md §1, the model zoo's remaining modules)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config this model cannot run."""
+    if cfg.num_encoder_layers > 0:
+        raise NotImplementedError(f"{cfg.arch_id}: the encoder-decoder family {_LATER}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.arch_id}: MoE blocks (layers/moe.py) {_LATER}")
+    if cfg.vision is not None:
+        raise NotImplementedError(f"{cfg.arch_id}: the VLM projector {_LATER}")
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.family != "ssm"
+
+
+def _has_mamba(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _has_mlp(cfg: ModelConfig) -> bool:
+    return cfg.family != "ssm"  # MoE blocks are refused by check_supported
+
+
+# ---------------------------------------------------------------------------
+# params
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
+    p: Dict[str, Any] = {"ln1": init_norm(cfg.norm, cfg.d_model, dtype, device)}
+    if _has_attn(cfg):
+        p["attn"] = attn_lib.init_attention(generator, cfg, dtype, device)
+    if _has_mamba(cfg):
+        p["mamba"] = mamba_lib.init_mamba2(generator, cfg, dtype, device)
+    if _has_mlp(cfg):
+        p["ln2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                            gated=cfg.gated_mlp, device=device)
+    return p
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
+    """Random params drawn from ``generator`` (on any device; drawing on
+    the card is fast at full width), placed on ``device`` in
+    ``cfg.param_dtype``."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    p = {
+        "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device),
+        "blocks": [init_block(generator, cfg, dtype, device)
+                   for _ in range(cfg.num_layers)],
+        "ln_f": init_norm(cfg.norm, cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_dense(generator, (cfg.d_model,), (cfg.vocab_size,), dtype,
+                                  device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# full sequence
+
+
+def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *, cfg: ModelConfig) -> torch.Tensor:
+    """A block's tail: hymba's attention and mamba heads, run in parallel
+    on the same input, are fused by averaging; then the residual and the
+    MLP."""
+    if attn_out is None or mamba_out is None:
+        mix = mamba_out if attn_out is None else attn_out
+    else:
+        mix = 0.5 * (attn_out + mamba_out)
+    x = x + mix
+    if "ln2" in lp:
+        x = x + apply_mlp(lp["mlp"], apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps),
+                          cfg=cfg)
+    return x
+
+
+def apply_block(lp, x: torch.Tensor, *, cfg: ModelConfig,
+                attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence block.  Returns (x, state): the layer's k and v
+    (B, S, KV, hd) and its mamba ``conv`` and ``ssm`` states, whichever
+    the family has, for the prefill's cache."""
+    h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
+    state: Dict[str, torch.Tensor] = {}
+    attn_out = mamba_out = None
+    if _has_attn(cfg):
+        q, state["k"], state["v"] = attn_lib.project_qkv(lp["attn"], h, cfg=cfg)
+        out = attn_lib.attend(q, state["k"], state["v"], cfg=cfg, attention_fn=attention_fn)
+        attn_out = apply_dense(lp["attn"]["wo"], out, n_in_dims=2, dtype=cfg.compute_dtype)
+    if _has_mamba(cfg):
+        mamba_out, mamba_state = mamba_lib.mamba2_with_state(lp["mamba"], h, cfg=cfg,
+                                                             ssd_fn=ssd_fn)
+        state.update(mamba_state)
+    return _fuse(lp, x, attn_out, mamba_out, cfg=cfg), state
+
+
+def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool) -> torch.Tensor:
+    dtype = cfg.compute_dtype
+    x = apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = logits_from_embedding(params["embed"], x, dtype)
+    else:
+        logits = apply_dense(params["lm_head"], x, dtype=dtype)
+    if softcap and cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def _embed(params, tokens, cfg: ModelConfig, patches, positions=None):
+    check_supported(cfg)
+    if patches is not None:
+        raise NotImplementedError(f"patch embeddings (the VLM projector) {_LATER}")
+    if positions is not None:
+        raise NotImplementedError(f"caller-supplied positions {_LATER}")
+    return embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+
+
+def lm_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
+               patches: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None,
+               attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train / prefill forward over a full sequence at positions 0..S-1.
+    Returns (logits (B, S, vocab), aux): aux, the MoE balance loss, is 0."""
+    x = _embed(params, tokens, cfg, patches, positions)
+    for lp in params["blocks"]:
+        x, _ = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
+    logits = _head(params, x, cfg, softcap=True)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+
+
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device="cpu"):
+    """Decode cache sized for a ``seq_len`` context: per-layer tensors
+    stacked on a leading layer axis, as in the JAX package.
+    Sliding-window archs keep a window-sized ring ("pos" holds each
+    slot's absolute position, -1 = empty), SSM archs O(1) state.  "t" is
+    the next position, a Python int."""
+    dtype = dtype or cfg.compute_dtype
+    cache: Dict[str, Any] = {"t": 0}
+    n_layers = cfg.num_layers
+    if _has_attn(cfg):
+        c = cache_len_for(cfg, seq_len)
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        cache["k"] = torch.zeros((n_layers, batch, c, kv, hd), dtype=dtype, device=device)
+        cache["v"] = torch.zeros((n_layers, batch, c, kv, hd), dtype=dtype, device=device)
+        cache["pos"] = torch.full((batch, c), -1, dtype=torch.int32, device=device)
+    if _has_mamba(cfg):
+        st = mamba_lib.init_mamba2_state(cfg, batch, dtype, device)
+        cache["conv"] = st["conv"][None].repeat(n_layers, 1, 1, 1)
+        cache["ssm"] = st["ssm"][None].repeat(n_layers, 1, 1, 1, 1)
+    return cache
+
+
+def lm_prefill(params, tokens: torch.Tensor, *, cfg: ModelConfig,
+               patches: Optional[torch.Tensor] = None, cache_len: Optional[int] = None,
+               attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, Any]:
+    """Prefill: full forward + build the decode cache.  Returns
+    (last-token logits (B, vocab), cache).  ``cache_len`` >= s leaves
+    headroom for subsequent decode steps (defaults to s).  As in the JAX
+    package, the prefill's logits take no soft cap."""
+    dtype = cfg.compute_dtype
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg, patches)
+    cache = init_cache(cfg, b, cache_len or s, dtype, x.device)
+    c = cache["k"].shape[2] if "k" in cache else 0
+    n_fill = min(c, s)
+    # the last n_fill tokens go to slot = pos % c (ring layout)
+    fill_pos = torch.arange(s - n_fill, s, device=x.device)
+    slots = fill_pos % c if c else fill_pos
+
+    for layer, lp in enumerate(params["blocks"]):
+        x, state = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
+        if "k" in state:  # the cache is filled in place
+            cache["k"][layer][:, slots] = state["k"][:, s - n_fill:]
+            cache["v"][layer][:, slots] = state["v"][:, s - n_fill:]
+        if "ssm" in state:  # the JAX package's _mamba_prefill
+            cache["conv"][layer] = state["conv"]
+            cache["ssm"][layer] = state["ssm"]
+
+    cache["t"] = s
+    if "pos" in cache:
+        cache["pos"][:, slots] = fill_pos.to(torch.int32)
+    return _head(params, x[:, -1:], cfg, softcap=False)[:, 0], cache
+
+
+def lm_decode_step(params, cache, tokens: torch.Tensor, *,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+    """One decode step: tokens (B, 1) -> (logits (B, vocab), cache).  The
+    cache is updated in place (the ring slot, the SSM and conv states,
+    "pos" and "t") and returned; the JAX package returns a new cache."""
+    position = cache["t"]
+    x = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    index = 0
+    if _has_attn(cfg):
+        index = position % cache["k"].shape[2]
+        cache["pos"][:, index] = position
+
+    for layer, lp in enumerate(params["blocks"]):
+        h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
+        attn_out = mamba_out = None
+        if _has_attn(cfg):
+            attn_out = attn_lib.decode_attention(
+                lp["attn"], h, cfg=cfg, cache_k=cache["k"][layer],
+                cache_v=cache["v"][layer], kv_pos=cache["pos"], index=index,
+                position=position)
+        if _has_mamba(cfg):
+            mamba_out, state = mamba_lib.decode_mamba2(
+                lp["mamba"], h, {"conv": cache["conv"][layer], "ssm": cache["ssm"][layer]},
+                cfg=cfg)
+            cache["conv"][layer] = state["conv"]
+            cache["ssm"][layer] = state["ssm"]
+        x = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
+
+    cache["t"] = position + 1
+    return _head(params, x, cfg, softcap=True)[:, 0], cache

@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels (forward K1, dX
-K2, dW K3) against their plain PyTorch versions, and the ``cuda``
-backend serving and running the backward through the cluster.
+K2, dW K3, flash attention K4, SSD scan K5) against their plain PyTorch
+versions, the ``cuda`` backend serving and running the backward through
+the cluster, and the model zoo's prefill and decode through K4 and K5.
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 kernels have no CPU mode; their arithmetic is held against the JAX
@@ -10,7 +11,10 @@ jax nor the JAX package, so it runs on a machine that has neither:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are tests/test_kernels.py's: fp32 atol 2e-4, bf16 atol 5e-2,
-both with rtol 0.05.
+both with rtol 0.05 (10x the atol for the SSD scan).  K4 and K5 compute
+in fp32 and round a bf16 output once, so theirs is held against the
+float64 plain version rounded to bf16 (``BF16_OUT_TOL``): at most one bf16
+step (2^-7 of the value) apart, which rtol 1e-2 holds.
 """
 import numpy as np
 import pytest
@@ -19,13 +23,22 @@ import torch
 from repro_torch.core.backends import get_backend
 from repro_torch.core.cluster.cluster import HeteroCluster
 from repro_torch.kernels.conv2d import Conv2dFunction, conv2d, conv2d_dw, conv2d_dx
-from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.ref import (
+    conv2d_dw_ref,
+    conv2d_dx_ref,
+    conv2d_ref,
+    flash_attention_ref,
+    ssd_chunked_ref,
+)
+from repro_torch.kernels.ssd import ssd
 from repro_torch.launch.hetero import relu_pool
 from repro_torch.serve.server import ClusterServer
 
 pytestmark = pytest.mark.gpu
 
 TOL = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 5e-2)}
+BF16_OUT_TOL = (1e-3, 1e-2)  # (atol, rtol) against a reference rounded to bf16
 SHAPES = [
     (1, 8, 8, 3, 16, 3),
     (2, 16, 16, 8, 24, 5),
@@ -205,3 +218,149 @@ def test_cuda_backend_backward_through_the_cluster(dev, partition):
     dx_want, dw_want = get_backend("torch:cpu").conv_vjp(x, w, g)
     np.testing.assert_allclose(dx, dx_want, atol=1e-4, rtol=0)
     np.testing.assert_allclose(dw, dw_want, atol=1e-3, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4 (flash attention) and K5 (SSD scan), and the model zoo's serving path
+
+ATTN_SHAPES = [  # (B, H, KV, S, T, D)
+    (2, 2, 2, 32, 32, 16), (2, 2, 2, 48, 80, 32), (2, 2, 2, 17, 33, 8),
+    (2, 6, 2, 40, 70, 64),    # GQA
+    (1, 25, 5, 300, 300, 64),  # hymba's heads, a ragged S
+    (2, 4, 4, 1, 200, 128),    # one query (decode-like) at head_dim 128
+]
+SSD_SHAPES = [  # (B, S, H, G, P, N, chunk)
+    (2, 32, 2, 2, 8, 4, 8), (2, 48, 3, 3, 16, 8, 16), (2, 25, 1, 1, 4, 4, 8),
+    (2, 300, 50, 1, 64, 16, 256),  # hymba's heads, a ragged last chunk
+    (1, 70, 4, 2, 32, 128, 64),    # mamba2-370m's d_state, grouped B/C
+    (2, 9, 2, 1, 16, 4, 256),      # shorter than one chunk
+]
+
+
+def _attn_inputs(dev, dtype, b, h, kv, s, t, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            for shape in ((b, h, s, d), (b, kv, t, d), (b, kv, t, d))]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, 16),
+                                           (False, None)])
+@pytest.mark.parametrize("b,h,kv,s,t,d", ATTN_SHAPES)
+def test_flash_attention_matches_plain_version(dev, b, h, kv, s, t, d, causal, window,
+                                               dtype):
+    tdtype, atol = TOL[dtype]
+    q, k, v = _attn_inputs(dev, tdtype, b, h, kv, s, t, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == tdtype and tuple(got.shape) == (b, h, s, d)
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                               window=window)
+    rtol = 0.05
+    if tdtype == torch.bfloat16:
+        want, (atol, rtol) = want.to(tdtype).double(), BF16_OUT_TOL
+    torch.testing.assert_close(got.double(), want, atol=atol, rtol=rtol)
+
+
+def test_flash_attention_reads_strided_views(dev):
+    """The model passes (B, S, H, D) projections as transposed views."""
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+               for shape in ((2, 50, 6, 32), (2, 50, 3, 32), (2, 50, 3, 32)))
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=True, window=20)
+    want = flash_attention(*(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                           causal=True, window=20)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 2, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError, match="float32 or all"):
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError, match="float32 or all"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="T >= S"):
+        flash_attention(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError, match="KV dividing H"):
+        flash_attention(torch.zeros((1, 3, 4, 8), device=dev), q, q)
+
+
+def _ssd_inputs_on(dev, dtype, b, s, h, g, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).to(dev)
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h)).astype(np.float32))).to(dev)
+    a = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(np.float32)) * 0.5).to(dev)
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, s, g, n)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_SHAPES)
+def test_ssd_matches_plain_version(dev, b, s, h, g, p, n, chunk, dtype):
+    """y and the fp32 final state against the plain version in float64,
+    at 10x the fp32 kernel sweep's atol (tests/test_kernels.py's SSD
+    rule); a bf16 y against the reference rounded to bf16."""
+    tdtype, _ = TOL[dtype]
+    atol = 10 * TOL["float32"][1]
+    x, dt, a, bm, cm = _ssd_inputs_on(dev, tdtype, b, s, h, g, p, n)
+    before = ssd.launches
+    y, final = ssd(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.dtype == tdtype and tuple(y.shape) == (b, s, h, p)
+    assert final.dtype == torch.float32 and tuple(final.shape) == (b, h, p, n)
+    y_want, final_want = ssd_chunked_ref(x.double(), dt.double(), a.double(), bm.double(),
+                                         cm.double(), min(chunk, s))
+    y_rtol = 0.05
+    if tdtype == torch.bfloat16:
+        y_want, y_rtol = y_want.to(tdtype).double(), BF16_OUT_TOL[1]
+    torch.testing.assert_close(y.double(), y_want, atol=atol, rtol=y_rtol)
+    torch.testing.assert_close(final.double(), final_want, atol=atol, rtol=0.05)
+
+
+def test_ssd_refuses_what_it_does_not_take(dev):
+    x, dt, a, bm, cm = _ssd_inputs_on(dev, torch.float32, 1, 8, 2, 1, 4, 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd(x, dt.cpu(), a, bm, cm)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        ssd(x, dt, a, bm.bfloat16(), cm)
+    with pytest.raises(TypeError, match="dt and a must be float32"):
+        ssd(x, dt.double(), a, bm, cm)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd(*_ssd_inputs_on(dev, torch.float32, 1, 512, 2, 1, 128, 256), chunk=512)
+
+
+def test_lm_prefill_and_decode_on_the_card_match_the_plain_path(dev):
+    """reduced hymba-1.5b on the card: K4 and K5 launched once per layer
+    in the prefill and never in decode; logits and cache against the
+    same model with the kernels' plain versions."""
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced_for_smoke(get_config("hymba-1.5b"))
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(dev)
+    before = (flash_attention.launches, ssd.launches)
+    logits, cache = api.prefill(params, {"tokens": toks[:, :30]}, cache_len=40)
+    assert (flash_attention.launches, ssd.launches) == tuple(
+        n + cfg.num_layers for n in before)
+    plain = {"attention_fn": flash_attention_ref, "ssd_fn": ssd_chunked_ref}
+    want, want_cache = api.prefill(params, {"tokens": toks[:, :30]}, cache_len=40, **plain)
+    torch.testing.assert_close(logits, want, atol=2e-3, rtol=2e-3)
+    for key in ("k", "v", "conv", "ssm"):
+        torch.testing.assert_close(cache[key], want_cache[key], atol=2e-3, rtol=2e-3)
+    mid = (flash_attention.launches, ssd.launches)
+    for t in range(30, 40):
+        got, cache = api.decode_step(params, cache, toks[:, t : t + 1])
+        want, want_cache = api.decode_step(params, want_cache, toks[:, t : t + 1])
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert (flash_attention.launches, ssd.launches) == mid

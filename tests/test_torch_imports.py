@@ -51,6 +51,9 @@ def test_entry_points_load_no_jax_and_no_repro_at_run_time():
         "import repro_torch.kernels.ops, repro_torch.convert\n"
         "import repro_torch.models.cnn, repro_torch.data.pipeline\n"
         "import repro_torch.configs.cifar_cnn\n"
+        "import repro_torch.launch.serve, repro_torch.serve.engine\n"
+        "import repro_torch.models.registry, repro_torch.configs\n"
+        "import repro_torch.kernels.flash_attn, repro_torch.kernels.ssd\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
