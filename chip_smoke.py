@@ -19,7 +19,11 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``conv2d_dw_ref`` the same way, at the test sweep's shapes, C1 and C2
    at batch 32, a ragged and an empty Cout, no pixels and a 7-row strip;
    the yardsticks are ``torch.nn.grad.conv2d_input``/``conv2d_weight``.
-   K3 runs twice on C1 and must give the same bits;
+   K2 also at Cin 1, 3, 4, 5, 16, 17, 64 and 65 (both sides of its
+   small-Cin variant) and on a small-M, large-K shape whose taps split,
+   each record with ``dx_plan``'s plan.  K2 runs twice on C1 and C2 and
+   on the train run's microbatch shards, K3 twice on C1, and each must
+   give the same bits;
 5. serve  — the port's ``run_serve`` on the paper's headline network
    ``cifar_cnn_500_1500`` over ``cuda,cuda,numpy``: 16 requests, every
    one ``ok``, 4 of them held against a single-device float64 chain on
@@ -43,7 +47,9 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    float64 on the card: tests/test_kernels.py's sweep (fp32/bf16, causal
    on/off, window None/16), a GQA case, hymba-1.5b's prefill shape
    (B 4, H 25 over KV 5, S = T = 2048, D 64, window 1024), a ragged
-   S = 2047 and one query against T = 1024; with median times of the
+   S = 2047, one query against T = 1024, and in bf16 D 20 and hymba's
+   shape through a row stride that is not 16-byte aligned (the tensor-core
+   kernel's scalar-load path); with median times of the
    kernel, the plain version and ``F.scaled_dot_product_attention`` on
    the same boolean mask (a yardstick the port never calls);
 11. kernel_ssd — the SSD scan K5 against ``ssd_chunked_ref`` in float64,
@@ -113,11 +119,12 @@ SEED = 0
 # lm_check: the kernel path's logits against the plain path's, max |diff|
 # over max |logit| (fp32 throughout; see PERF.md for the choice)
 LM_RTOL = 1e-3
-# the wrappers' kernels by trace symbol: the first counts launches, all
-# of them count time (K3 reduces its pixel chunks in a second kernel)
+# the wrappers' kernels by trace symbol: the first counts launches (K2's
+# two variants share it), all of them count time (K2 reduces its tap
+# splits and K3 its pixel chunks in a second kernel)
 SYMBOLS = {
     "conv2d_fwd": ("conv2d_fwd_kernel",),
-    "conv2d_dx": ("conv2d_dx_kernel",),
+    "conv2d_dx": ("conv2d_dx_kernel", "conv2d_dx_reduce_kernel"),
     "conv2d_dw": ("conv2d_dw_kernel", "conv2d_dw_reduce_kernel"),
     "flash_attention": ("flash_attn_fwd_kernel",),
     "ssd": ("ssd_fwd_kernel",),
@@ -229,7 +236,7 @@ class Kernels:
     called as ``f(x, w, g)``."""
 
     def __init__(self):
-        from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx
+        from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dx_plan
         from repro_torch.kernels.flash_attn import flash_attention
         from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
         from repro_torch.kernels.ssd import ssd
@@ -238,6 +245,7 @@ class Kernels:
                         "conv2d_dw": conv2d_dw, "flash_attention": flash_attention,
                         "ssd": ssd}
         self.conv2d_ref = conv2d_ref
+        self.dx_plan = dx_plan
         self.calls = {  # (kernel, plain version)
             "conv2d_fwd": (lambda x, w, g: conv2d(x, w),
                            lambda x, w, g: conv2d_ref(x, w)),
@@ -296,6 +304,9 @@ def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes,
     }
+    if kind == "conv2d_dx" and not empty:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rec["plan"] = ks.dx_plan((b, h, w, cout), k, k, cin, itemsize(dtype), sms)._asdict()
     if empty:
         return rec
     reps = reps_for(flops)
@@ -499,16 +510,19 @@ def sdpa_call(q, k, v, causal, window):
     return lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
 
 
-def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phase):
+def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phase,
+               pad=0):
     """K4 against its plain version in float64 on one shape (rounded to
     bf16 for a bf16 output: ``BF16_OUT_TOL``), q, k, v given as
-    transposed views of (B, S, heads, D) tensors as the model gives them;
-    fail on a mismatch.  Returns the shape's record."""
+    transposed views of (B, S, heads, D) tensors as the model gives them
+    (of (B, S, heads, D + pad) tensors cut to D: a row stride that is not
+    a multiple of 16 bytes for an odd pad); fail on a mismatch.  Returns
+    the shape's record."""
     from repro_torch.kernels.ref import flash_attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + s + t + d + h)
-    q, k, v = (torch.randn((b, n, heads, d), generator=gen, device=dev).to(dtype)
-               .transpose(1, 2) for n, heads in ((s, h), (t, kv), (t, kv)))
+    q, k, v = (torch.randn((b, n, heads, d + pad), generator=gen, device=dev).to(dtype)
+               [..., :d].transpose(1, 2) for n, heads in ((s, h), (t, kv), (t, kv)))
     fn = ks.wrapper["flash_attention"]
     got = fn(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -533,7 +547,7 @@ def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phas
         "phase": phase, "kernel": "flash_attention", "case": label,
         "dtype": str(dtype).split(".")[-1],
         "shape": {"B": b, "H": h, "KV": kv, "S": s, "T": t, "D": d,
-                  "causal": causal, "window": window},
+                  "causal": causal, "window": window, "row_stride": q.stride(2)},
         "max_abs_err": err, "atol": atol, "rtol": rtol,
         "ms": events_ms(lambda: fn(q, k, v, causal=causal, window=window), reps),
         "plain_ms": events_ms(lambda: flash_attention_ref(
@@ -728,7 +742,31 @@ def main() -> int:
             for label, shape in bwd_cases:
                 emit(check_shape(ks, kind, dev, *shape, dtype, label=label,
                                  phase="kernel_bwd"))
+    # K2's variants: Cin on both sides of the small-Cin boundary (16), and
+    # a small-M, large-K shape whose taps split
+    for dtype in (torch.float32, torch.bfloat16):
+        for cin in (1, 3, 4, 5, 16, 17, 64, 65):
+            emit(check_shape(ks, "conv2d_dx", dev, 8, 32, 32, cin, 167, 5, dtype,
+                             label=f"Cin {cin}", phase="kernel_bwd"))
+        emit(check_shape(ks, "conv2d_dx", dev, 1, 4, 4, 40, 1500, 5, dtype,
+                         label="small M, large K", phase="kernel_bwd"))
+    # K2 reruns give the same bits: C1 and C2 at batch 32 and the train
+    # run's microbatch shards (split-K; C1's small-Cin variant)
     rng = np.random.default_rng(SEED)
+    for label, (b_, h_, w_, cin, cout) in (("C1", (32, 32, 32, 3, 500)),
+                                           ("C2", (32, 16, 16, 500, 1500)),
+                                           ("C1 microbatch shard", (8, 32, 32, 3, 167)),
+                                           ("C2 microbatch shard", (8, 16, 16, 500, 500))):
+        gn = torch.from_numpy(rng.standard_normal((b_, h_, w_, cout)).astype(np.float32))
+        wn = torch.from_numpy((rng.standard_normal((5, 5, cin, cout)) * 0.1)
+                              .astype(np.float32))
+        g_, w5 = gn.to(dev), wn.to(dev)
+        if not torch.equal(ks.wrapper["conv2d_dx"](g_, w5), ks.wrapper["conv2d_dx"](g_, w5)):
+            fail(f"kernel_bwd: two K2 runs on {label} gave different bits")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        emit({"phase": "kernel_bwd", "case": f"K2 rerun on {label}", "bit_identical": True,
+              "plan": ks.dx_plan(g_.shape, 5, 5, cin, 4, sms)._asdict()})
+    del g_, w5
     xc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 3)).astype(np.float32)).to(dev)
     gc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 500)).astype(np.float32)).to(dev)
     dw_a = ks.wrapper["conv2d_dw"](xc1, gc1, 5, 5)
@@ -896,6 +934,12 @@ def main() -> int:
                     label="ragged S 2047", phase="kernel_attn"))
     emit(check_attn(ks, dev, 4, 25, 5, 1, 1024, 64, True, 1024, torch.bfloat16,
                     label="S 1 against T 1024", phase="kernel_attn"))
+    # the bf16 kernel's scalar-load path: D 20 (not a multiple of 8), and
+    # hymba's prefill read through a row stride of 25 * 65 elements
+    emit(check_attn(ks, dev, 4, 25, 5, 2048, 2048, 20, True, 1024, torch.bfloat16,
+                    label="D 20", phase="kernel_attn"))
+    emit(check_attn(ks, dev, *hymba_attn, True, 1024, torch.bfloat16,
+                    label="unaligned row stride", phase="kernel_attn", pad=1))
 
     # -- 11. K5 against its plain version ------------------------------------
     for dtype in (torch.float32, torch.bfloat16):

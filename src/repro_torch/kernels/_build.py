@@ -60,7 +60,7 @@ _SIGNATURES = {
     },
     "conv2d_bwd": {
         "conv2d_dx_launch": (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
             ctypes.c_int,
         ),
         "conv2d_dw_launch": (

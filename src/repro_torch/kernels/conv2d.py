@@ -13,6 +13,7 @@ kernel's launches, so a run can show that its path went through it.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +25,13 @@ _COUNT_LOCK = threading.Lock()
 # dW's split of the pixel axis: enough chunks for two blocks per SM,
 # each chunk at least this many pixels
 _DW_MIN_CHUNK = 256
+# dX's split-K workspace (fp32, one slice per split) stays within this
+# many times dX's own bytes
+_DX_WS_CAP = 8
+# blocks of conv2d_bwd.cu's dX kernels resident on one SM (their
+# __launch_bounds__): the tiled variant, and the small-Cin variant by its
+# N tile
+_DX_BLOCKS_PER_SM = {"tiled": 2, 4: 2, 8: 1, 16: 1}
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -96,12 +104,59 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class DxPlan(NamedTuple):
+    """How K2 cuts one dX GEMM (M = B*H*W pixels, N = Cin, K = kh*kw*Cout)."""
+
+    variant: str  # "small_cin" (Cin <= 16) or "tiled"
+    bn: int  # input channels per block: the N tile
+    tiles: int  # blocks per split
+    splits: int  # runs of taps, each its own workspace slice
+    taps_per_split: int
+
+
+def dx_plan(g_shape, kh: int, kw: int, cin: int, itemsize: int,
+            sm_count: int) -> DxPlan:
+    """K2's variant, tile and split of the taps, a function of the shapes
+    alone (so a rerun sums in the same order).
+
+    Cin <= 16 takes the small-Cin variant with the N tile Cin rounded up
+    to 4, 8 or 16 and 16 row segments of 8 pixels a block (4 at 16
+    channels); larger Cin the tiled variant, 128 pixels by 64 (Cin <= 64)
+    or 128 channels.  The kh*kw taps are split into runs of whole taps
+    where that shortens the kernel: the count of splits minimises
+    (waves of blocks over the card's resident block slots) x (taps per
+    split), the fewest splits on a tie, with the fp32 workspace at most
+    ``_DX_WS_CAP`` times dX's bytes (dX in g's dtype of ``itemsize``
+    bytes).  A shape whose tiles already fill the slots does not split."""
+    b, h, wd, _ = g_shape
+    taps = kh * kw
+    if b * h * wd == 0:
+        raise ValueError(f"dx_plan: no pixels in {tuple(g_shape)}")
+    if cin <= 16:
+        bn = 4 if cin <= 4 else 8 if cin <= 8 else 16
+        seg = 4 if bn == 16 else 8
+        variant, per_sm = "small_cin", _DX_BLOCKS_PER_SM[bn]
+        tiles = -(-b * h * -(-wd // seg) // 16)
+    else:
+        variant, bn = "tiled", 64 if cin <= 64 else 128
+        per_sm = _DX_BLOCKS_PER_SM["tiled"]
+        tiles = -(-b * h * wd // 128) * -(-cin // bn)
+    slots = per_sm * sm_count
+    cap = max(1, _DX_WS_CAP * itemsize // 4)
+    splits = min(range(1, min(taps, cap) + 1),
+                 key=lambda s: (-(-tiles * s // slots) * -(-taps // s), s))
+    per = -(-taps // splits)
+    return DxPlan(variant, bn, tiles, -(-taps // per), per)
+
+
 def conv2d_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dX of the SAME stride-1 conv: g (B, H, W, Cout) against the
     forward kernel w (kh, kw, Cin, Cout) -> (B, H, W, Cin) in g's dtype.
 
     Same contract as ``conv2d``.  An empty output returns without a
-    launch, and so does Cout = 0, whose dX is zeros."""
+    launch, and so does Cout = 0, whose dX is zeros.  ``dx_plan`` picks
+    the kernel's variant and split; split partial sums are reduced in a
+    fixed order, no atomics, so a rerun gives the same bits."""
     if _on_cpu(g, w):
         return conv2d_dx_ref(g, w)
     if g.dim() != 4 or w.dim() != 4 or w.shape[3] != g.shape[3]:
@@ -117,12 +172,18 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dx = torch.empty((b, h, wd, cin), dtype=g.dtype, device=g.device)
     g = g.contiguous()
     w = w.contiguous()
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    plan = dx_plan(g.shape, kh, kw, cin, g.element_size(), sms)
+    ws = (torch.empty((plan.splits, *dx.shape), dtype=torch.float32, device=g.device)
+          if plan.splits > 1 else None)
     lib = conv2d_bwd_library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
         code = lib.conv2d_dx_launch(
             g.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            b, h, wd, cin, cout, kh, kw, _DTYPE_CODE[g.dtype], stream,
+            None if ws is None else ws.data_ptr(),
+            b, h, wd, cin, cout, kh, kw, plan.bn, plan.splits, plan.taps_per_split,
+            _DTYPE_CODE[g.dtype], stream,
         )
     _raise_on(code, lib, "conv2d_bwd_error_string",
               f"conv2d_dx for g {tuple(g.shape)} w {tuple(w.shape)} {g.dtype}")

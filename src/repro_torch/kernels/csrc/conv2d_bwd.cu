@@ -2,7 +2,7 @@
 // (sm_90a): dX (K2) and dW (K3) of conv2d_fwd.cu's NHWC x HWIO conv,
 // fp32 accumulation, fp32 or bf16 inputs.
 //
-// K2, conv2d_dx_kernel, replaces repro/kernels/conv2d.py::
+// K2, conv2d_dx_kernel (and _small_cin), replaces repro/kernels/conv2d.py::
 // conv2d_dx_pallas: there dX is the forward Pallas kernel run on g
 // against a flipped, channel-swapped copy of w under the complementary
 // pad.  Here it is an implicit GEMM of its own:
@@ -12,11 +12,35 @@
 //   B[(i,j,co), ci] = w[kh-1-i, kw-1-j, ci, co]
 //
 // A is gathered from NHWC g with the complementary zero pad applied on
-// the fly, as conv2d_fwd.cu gathers x.  B is read IN PLACE from the
-// HWIO weight: no flipped, transposed copy (75 MB per call at the
-// paper's C2 layer).  In HWIO the contiguous axis co lies on K here, not
-// on N, so the B slab is staged with adjacent threads walking co
-// (coalesced global loads) and stored transposed into shared memory.
+// the fly; a tap (i, j) is one shift of the flat pixel index, so the pad
+// test and the shift are computed once per tap, not per element.  B is
+// read IN PLACE from the HWIO weight: no flipped, transposed copy (75 MB
+// per call at the paper's C2 layer).
+//
+// What bounds it: the forward's 2*B*H*W*kh*kw*Cin*Cout operations on few
+// bytes, IEEE fp32 FMA on the CUDA cores (the fp32 tolerance rules out
+// TF32), so the 67 TFLOP/s fp32 rate.  The design feeds the FMA pipes:
+// - Tiled variant (Cin > 16): 128 x 128 tiles (128 x 64 for Cin <= 64),
+//   each of 256 threads an 8 x 8 patch read as float4s (64 FMAs per 16
+//   shared loads); the K loop runs tap-major with 8-deep Cout slabs; the
+//   next slab is gathered into registers during the math and stored into
+//   a double-buffered shared tile, one barrier per slab; each thread sums
+//   DX_FOLD slabs (256 terms) in registers before folding them into its
+//   running total, a two-level fp32 sum for reductions up to 37,500
+//   terms; the totals live in shared memory, so two blocks fit an SM.
+// - Small-Cin variant (Cin <= 16; C1's Cin is 3): the N tile is Cin
+//   rounded up to 4, 8 or 16, not 64, so at most a quarter of the
+//   columns are padding at Cin = 3; each thread holds a segment of 8
+//   pixels of one image row (4 at 16 channels) x the padded channels in
+//   registers, and walks a kernel row's taps with a sliding window of g,
+//   one new pixel per tap; w is staged in shared memory per slab.
+// - Split-K: where the output tiles leave the card's block slots idle
+//   (the training path's microbatches), the taps are cut into runs, each
+//   written to its own fp32 slice of a workspace, and
+//   conv2d_dx_reduce_kernel sums the slices in a fixed order and writes
+//   dX in g's dtype.  No float atomics: reruns give bit-identical dX.
+//   kernels/conv2d.py::dx_plan picks the variant, the tile and the splits
+//   from the shapes and the SM count alone.
 //
 // K3, conv2d_dw_kernel, replaces conv2d.py::conv2d_dw_pallas (body
 // _conv2d_dw_kernel), which accumulates per-tap window(x)^T @ g into the
@@ -34,16 +58,13 @@
 // a bit-identical dW, which the batch-axis partition's exact sum of
 // per-device dW relies on.
 //
-// What bounds them: each does the forward's 2*B*H*W*kh*kw*Cin*Cout
-// operations on few bytes at C2, so the fp32 CUDA-core rate bounds them
-// (TF32 is ruled out by the fp32 tolerance).  Like conv2d_fwd.cu this is
-// a plain, right first version: 64x64 output tiles, 16-deep slabs in
+// What bounds K3: the same operation count, so the fp32 rate.  It is a
+// plain, right first version: 64x64 output tiles, 16-deep slabs in
 // shared memory, a 4x4 register tile per thread, IEEE fp32 FMA, ragged
-// M, N and K edges masked with zeros.  No cp.async/TMA or wgmma yet.
-// Their reductions are long (37,500 terms for dX at C2, 8,192 pixels for
-// dW of a 32-image batch), so each thread sums FOLD slabs (256 terms)
-// into a partial tile before adding it to its total: a two-level fp32
-// sum whose rounding error stays well inside the fp32 tolerance.
+// M, N and K edges masked with zeros.  No cp.async/TMA yet.  Its
+// reduction is long (8,192 pixels for dW of a 32-image batch), so each
+// thread sums FOLD slabs (256 terms) into a partial tile before adding
+// it to its total.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
 // with a plain C interface, bound through ctypes.
@@ -52,6 +73,7 @@
 
 namespace {
 
+// K3's tile
 constexpr int BM = 64;        // output rows per block
 constexpr int BN = 64;        // output columns per block
 constexpr int BK = 16;        // reduction slab per shared-memory stage
@@ -114,110 +136,397 @@ __device__ __forceinline__ void mma_slab(const float (*As)[LDA],
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                 T* __restrict__ dx, int B, int H, int W, int Cin, int Cout,
-                 int KH, int KW) {
-  __shared__ float As[BK][BM + APAD];
-  __shared__ float Bs[BK][BN + 1];  // +1: the transposed stores spread banks
+// -- K2: dX -------------------------------------------------------------------
+
+constexpr int DX_BM = 128;     // tiled variant: pixels per block
+constexpr int DX_BK = 8;       // tiled variant: output channels per slab
+constexpr int DX_THREADS = 256;
+constexpr int DX_FOLD = 32;    // slabs (256 terms) summed in a partial before folding
+constexpr int SC_CO = 4;       // small-Cin variant: output channels per thread per slab
+constexpr int SC_TAPS = 25;    // small-Cin variant: taps of w staged in shared memory at once
+
+// Whether tap (i, j) of output pixel m = (b, oh, ow) reads g inside the
+// image.  Where it does, g[b, oh + i - qh, ow + j - qw, :] lies at flat
+// pixel m + (i - qh) * W + (j - qw): a tap is one shift of the flat pixel
+// index, and only this pad test is per pixel.
+__device__ __forceinline__ bool tap_ok(int oh, int ow, int di, int dj, int qh, int qw,
+                                       int H, int W) {
+  return (unsigned)(oh + di - qh) < (unsigned)H && (unsigned)(ow + dj - qw) < (unsigned)W;
+}
+
+// Tiled variant (Cin > 16): a DX_BM x NT tile of dX per block, 256
+// threads as 16 x 16, each an 8 x (NT / 16) patch read from shared
+// memory as float4s.  The K loop runs tap-major, taps [t0, t1) of this
+// split (blockIdx.z) outer and Cout in 8-deep slabs inner: the pad test
+// and the pixel shift are computed once per tap.  The next slab is
+// gathered into registers while the current one is multiplied, then
+// stored into the other half of a double-buffered shared tile: one
+// barrier per slab.  Each thread sums DX_FOLD slabs in registers and
+// folds them into its total in shared memory.  Writes dX in T (one split)
+// or its fp32 slice of the workspace.
+template <typename T, int NT>
+__global__ void __launch_bounds__(DX_THREADS, 2)
+conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
+                 float* __restrict__ ws, int B, int H, int W, int Cin, int Cout, int KH,
+                 int KW, int taps_per_split) {
+  constexpr int TN = NT / 16;      // columns per thread
+  constexpr int BR = NT / 32;      // B-slab columns loaded per thread
+  constexpr int LDA = DX_BM + 4;   // row pads: the transposed stores spread banks
+  constexpr int LDB = NT + 4;
+  __shared__ __align__(16) float As[2][DX_BK][LDA];
+  __shared__ __align__(16) float Bs[2][DX_BK][LDB];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long long HW = (long long)H * W;
+  const int HW = H * W;
   const long long M = (long long)B * HW;
-  const int K = KH * KW * Cout;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const long long m0 = (long long)blockIdx.x * DX_BM;
+  const int n0 = blockIdx.y * NT;
+  const int t0 = blockIdx.z * taps_per_split;
+  const int t1 = min(t0 + taps_per_split, KH * KW);
   const int qh = KH - 1 - KH / 2;  // the complementary pad
   const int qw = KW - 1 - KW / 2;
 
-  // A-slab loader: each thread fills one K column (adjacent threads walk
-  // adjacent output channels co, adjacent addresses of NHWC g) for 4 rows.
-  const int a_k = tid % BK;
-  const int a_row = tid / BK;  // 0..15; rows a_row + 16 r
-  long long a_base[4];         // offset of pixel (b, 0, 0, 0) in g
+  // A-slab loader: 8 adjacent threads walk 8 adjacent output channels
+  // (adjacent addresses of NHWC g) for 4 pixels each
+  const int a_k = tid % DX_BK;
+  const int a_row = tid / DX_BK;  // 0..31; pixels a_row + 32 r
+  const T* a_ptr[4];
   int a_oh[4], a_ow[4];
-  bool a_ok[4];
+  bool a_in[4], a_ok[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const long long m = m0 + a_row + 16 * r;
-    a_ok[r] = m < M;
-    const long long b = a_ok[r] ? m / HW : 0;
-    const long long rem = a_ok[r] ? m - b * HW : 0;
-    a_oh[r] = (int)(rem / W);
-    a_ow[r] = (int)(rem - (long long)a_oh[r] * W);
-    a_base[r] = b * HW * Cout;
+    const long long m = m0 + a_row + 32 * r;
+    a_in[r] = m < M;
+    const int rem = a_in[r] ? (int)(m % HW) : 0;
+    a_oh[r] = rem / W;
+    a_ow[r] = rem - a_oh[r] * W;
+    a_ptr[r] = g + (a_in[r] ? m : 0) * Cout + a_k;
   }
-  // B-slab loader: adjacent threads walk co (the contiguous HWIO axis,
-  // here on K) for 4 input channels each; stored transposed.
-  const int b_k = tid % BK;
-  const int b_n = tid / BK;  // 0..15; columns b_n + 16 r
+  // B-slab loader: 8 adjacent threads walk co (the contiguous HWIO axis)
+  // for BR input channels each; stored transposed
+  const int b_k = tid % DX_BK;
+  const int b_n = tid / DX_BK;  // 0..31; columns b_n + 32 r
 
-  float acc[4][4], part[4][4];
-  zero(acc);
-  zero(part);
-  int slab = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + a_k;
-    const bool k_ok = k < K;
-    int di = 0, dj = 0, co = 0;
-    if (k_ok) {
-      const int tap = k / Cout;
-      co = k - tap * Cout;
-      di = tap / KW;
-      dj = tap - di * KW;
-    }
+  // the slab being loaded: tap lt, channels [lco, lco + 8)
+  int lt = t0, lco = 0;
+  long long tap_off = 0;  // g offset of the tap's pixel shift
+  const T* w_tap = w;     // w[kh-1-i, kw-1-j, :, :]
+  auto set_tap = [&](int tap) {
+    const int di = tap / KW;
+    const int dj = tap - di * KW;
+    tap_off = ((long long)(di - qh) * W + (dj - qw)) * Cout;
+    w_tap = w + (long long)((KH - 1 - di) * KW + (KW - 1 - dj)) * Cin * Cout;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float v = 0.0f;
-      const int ih = a_oh[r] + di - qh;
-      const int iw = a_ow[r] + dj - qw;
-      if (k_ok && a_ok[r] && ih >= 0 && ih < H && iw >= 0 && iw < W) {
-        v = to_f32(g[a_base[r] + ((long long)ih * W + iw) * Cout + co]);
+    for (int r = 0; r < 4; ++r)
+      a_ok[r] = a_in[r] && tap_ok(a_oh[r], a_ow[r], di, dj, qh, qw, H, W);
+  };
+  float a_reg[4], b_reg[BR];
+  auto load_slab = [&]() {
+    const bool ka = lco + a_k < Cout;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a_reg[r] = (ka && a_ok[r]) ? to_f32(a_ptr[r][tap_off + lco]) : 0.0f;
+    const int cob = lco + b_k;
+#pragma unroll
+    for (int r = 0; r < BR; ++r) {
+      const int n = n0 + b_n + 32 * r;
+      b_reg[r] = (cob < Cout && n < Cin) ? to_f32(w_tap[(long long)n * Cout + cob]) : 0.0f;
+    }
+  };
+  auto store_slab = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) As[buf][a_k][a_row + 32 * r] = a_reg[r];
+#pragma unroll
+    for (int r = 0; r < BR; ++r) Bs[buf][b_k][b_n + 32 * r] = b_reg[r];
+  };
+  auto advance = [&]() {
+    lco += DX_BK;
+    if (lco >= Cout) {
+      lco = 0;
+      if (++lt < t1) set_tap(lt);
+    }
+  };
+
+  // the thread's running total, in its own column of dynamic shared
+  // memory (8 * TN floats, DX_THREADS apart): out of the registers, so
+  // that two blocks fit on an SM
+  extern __shared__ float total[];
+  float part[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      part[i][j] = 0.0f;
+      total[(i * TN + j) * DX_THREADS + tid] = 0.0f;
+    }
+
+  const int n_slabs = (t1 - t0) * ((Cout + DX_BK - 1) / DX_BK);
+  set_tap(lt);
+  load_slab();
+  store_slab(0);
+  advance();
+  __syncthreads();
+  int folded = 0;
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    const int cur = sl & 1;
+    const bool more = sl + 1 < n_slabs;
+    if (more) load_slab();  // global gathers in flight during the math
+#pragma unroll
+    for (int kk = 0; kk < DX_BK; ++kk) {
+      float a[8], bv[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+#pragma unroll
+      for (int jj = 0; jj < TN / 4; ++jj) {
+        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 * jj + tx * 4]);
+        bv[4 * jj] = b4.x; bv[4 * jj + 1] = b4.y; bv[4 * jj + 2] = b4.z; bv[4 * jj + 3] = b4.w;
       }
-      As[a_k][a_row + 16 * r] = v;
-    }
-
-    const int kb = k0 + b_k;
-    const bool kb_ok = kb < K;
-    long long w_off = 0;  // offset of w[kh-1-i, kw-1-j, 0, co]
-    if (kb_ok) {
-      const int tap = kb / Cout;
-      const int cob = kb - tap * Cout;
-      const int dib = tap / KW;
-      const int djb = tap - dib * KW;
-      w_off = (long long)((KH - 1 - dib) * KW + (KW - 1 - djb)) * Cin * Cout +
-              cob;
-    }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int n = n0 + b_n + 16 * r;
-      Bs[b_k][b_n + 16 * r] =
-          (kb_ok && n < Cin) ? to_f32(w[w_off + (long long)n * Cout]) : 0.0f;
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], bv[j], part[i][j]);
+    }
+    if (more) {
+      store_slab(cur ^ 1);
+      advance();
     }
     __syncthreads();
-    mma_slab<BM + APAD, BN + 1>(As, Bs, ty, tx, part);
-    __syncthreads();
-    if (++slab == FOLD) {
-      fold(acc, part);
-      slab = 0;
+    if (++folded == DX_FOLD) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          total[(i * TN + j) * DX_THREADS + tid] += part[i][j];
+          part[i][j] = 0.0f;
+        }
+      folded = 0;
     }
   }
-  fold(acc, part);
 
+  float* wsp = ws ? ws + (long long)blockIdx.z * M * Cin : nullptr;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const long long m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < Cin) dx[m * Cin + n] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + (j / 4) * 64 + tx * 4 + (j % 4);
+      if (n >= Cin) continue;
+      const float val = total[(i * TN + j) * DX_THREADS + tid] + part[i][j];
+      if (wsp)
+        wsp[m * Cin + n] = val;
+      else
+        dx[m * Cin + n] = from_f32<T>(val);
     }
   }
+}
+
+// Small-Cin variant (Cin <= NP, NP of 4, 8 or 16): the N tile is Cin
+// rounded up to NP.  256 threads as 16 pixel groups x 16 channel lanes.
+// A pixel group is a segment of TM pixels of one image row (rows are cut
+// into ceil(W / TM) segments); a thread holds TM pixels x NP input
+// channels in registers and, for each slab of 64 output channels, sums
+// its 4 channels (lane + 16 c) over the taps of this split (blockIdx.y).
+// Along a kernel row the taps (i, j) and (i, j + 1) read the segment's g
+// shifted by one pixel, so the thread keeps a sliding window of TM pixels
+// x 4 channels in registers: one new pixel (4 loads) per tap instead of
+// TM, with the pad applied as the pixel is loaded.  g is read straight
+// into registers (16 lanes, 16 adjacent channels of one pixel: 64
+// coalesced bytes); w is staged in shared memory for SC_TAPS taps of the
+// slab at a time, a lane's NP channels of one output channel read as
+// float4s (not NP strided loads, 2-byte ones for bf16).  At the end the
+// 16 channel lanes of a
+// pixel group, one half-warp, sum their partials with a butterfly of
+// shuffles (a fixed order: every lane ends with the same bits).
+template <typename T, int NP>
+__global__ void __launch_bounds__(DX_THREADS, NP == 4 ? 2 : 1)
+conv2d_dx_kernel_small_cin(const T* __restrict__ g, const T* __restrict__ w,
+                           T* __restrict__ dx, float* __restrict__ ws, int B, int H,
+                           int W, int Cin, int Cout, int KH, int KW, int taps_per_split) {
+  constexpr int TM = NP == 16 ? 4 : 8;  // pixels per segment
+  const int tid = threadIdx.x;
+  const int kl = tid % 16;  // channel lane
+  const int pg = tid / 16;  // pixel group
+  const int nseg = (W + TM - 1) / TM;
+  const long long rows = (long long)B * H;
+  const long long M = rows * W;
+  const long long seg = (long long)blockIdx.x * 16 + pg;
+  const bool seg_ok = seg < rows * nseg;
+  const long long row = seg_ok ? seg / nseg : 0;  // b * H + oh
+  const int ow0 = seg_ok ? (int)(seg - row * nseg) * TM : 0;
+  const int oh = (int)(row % H);
+  const int t0 = blockIdx.y * taps_per_split;
+  const int t1 = min(t0 + taps_per_split, KH * KW);
+  const int qh = KH - 1 - KH / 2;
+  const int qw = KW - 1 - KW / 2;
+  const long long wtap = (long long)Cin * Cout;  // one tap of w
+
+  float acc[TM][NP];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[i][c] = 0.0f;
+
+  // w[kh-1-i, kw-1-j, ci, co0 + col] of up to SC_TAPS taps, at
+  // wsm[(tap - c0) * 64 + col][ci]: a lane reads its NP channels as float4s
+  extern __shared__ __align__(16) float wsm[];
+  for (int co0 = 0; co0 < Cout; co0 += 16 * SC_CO) {
+    bool co_ok[SC_CO];
+#pragma unroll
+    for (int c = 0; c < SC_CO; ++c) co_ok[c] = co0 + kl + 16 * c < Cout;
+    for (int c0 = t0; c0 < t1; c0 += SC_TAPS) {
+      const int c1 = min(c0 + SC_TAPS, t1);
+      __syncthreads();  // every thread is done with the last chunk's w
+      for (int tap = c0; tap < c1; ++tap) {
+        const int wi = tap / KW;
+        const T* wt = w + (long long)((KH - 1 - wi) * KW + (KW - 1 - (tap - wi * KW))) * wtap + co0;
+        for (int e = tid; e < 64 * NP; e += DX_THREADS) {
+          const int col = e % 64;  // adjacent threads, adjacent co: coalesced
+          const int ci = e / 64;
+          wsm[((tap - c0) * 64 + col) * NP + ci] =
+              (ci < Cin && co0 + col < Cout) ? to_f32(wt[(long long)ci * Cout + col]) : 0.0f;
+        }
+      }
+      __syncthreads();
+      int di = c0 / KW;
+      int dj = c0 - di * KW;
+      for (int tap = c0; tap < c1; ++di, dj = 0) {
+        const int dj_end = min(KW, dj + (c1 - tap));  // this row's taps: [dj, dj_end)
+        tap += dj_end - dj;
+        const int ih = oh + di - qh;
+        const bool row_ok = seg_ok && (unsigned)ih < (unsigned)H;
+        // g[b, ih, 0, co0 + kl]: only dereferenced where row_ok
+        const T* src = g + (row_ok ? (row + di - qh) * W * Cout : 0) + co0 + kl;
+        float win[TM][SC_CO];  // g at pixels ow0 + i + j - qw of row ih
+        auto load = [&](int slot, int iw) {
+          const bool ok = row_ok && (unsigned)iw < (unsigned)W;
+          const T* p = src + (long long)iw * Cout;
+#pragma unroll
+          for (int c = 0; c < SC_CO; ++c)
+            win[slot][c] = (ok && co_ok[c]) ? to_f32(p[16 * c]) : 0.0f;
+        };
+#pragma unroll
+        for (int i = 0; i < TM - 1; ++i) load(i, ow0 + i + dj - qw);
+        for (int j = dj; j < dj_end; ++j) {
+          load(TM - 1, ow0 + TM - 1 + j - qw);
+          const float* wrow = wsm + ((di * KW + j - c0) * 64 + kl) * NP;
+          float wv[SC_CO][NP];
+#pragma unroll
+          for (int c = 0; c < SC_CO; ++c)
+#pragma unroll
+            for (int q = 0; q < NP / 4; ++q) {
+              const float4 f = *reinterpret_cast<const float4*>(wrow + 16 * c * NP + 4 * q);
+              wv[c][4 * q] = f.x;
+              wv[c][4 * q + 1] = f.y;
+              wv[c][4 * q + 2] = f.z;
+              wv[c][4 * q + 3] = f.w;
+            }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int c = 0; c < SC_CO; ++c)
+#pragma unroll
+              for (int ci = 0; ci < NP; ++ci) acc[i][ci] = fmaf(win[i][c], wv[c][ci], acc[i][ci]);
+#pragma unroll
+          for (int i = 0; i < TM - 1; ++i)
+#pragma unroll
+            for (int c = 0; c < SC_CO; ++c) win[i][c] = win[i + 1][c];
+        }
+      }
+    }
+  }
+
+  float* wsp = ws ? ws + (long long)blockIdx.y * M * Cin : nullptr;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int ci = 0; ci < NP; ++ci) {
+      float v = acc[i][ci];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[i][ci] = v;
+    }
+  // lane kl writes elements e = kl, kl + 16, ... of the TM x NP patch
+  const long long m0 = row * W + ow0;
+#pragma unroll
+  for (int e = 0; e < TM * NP; ++e) {
+    if ((e & 15) != kl) continue;
+    const int i = e / NP;
+    const int ci = e % NP;
+    if (!seg_ok || ow0 + i >= W || ci >= Cin) continue;
+    const long long m = m0 + i;
+    if (wsp)
+      wsp[m * Cin + ci] = acc[i][ci];
+    else
+      dx[m * Cin + ci] = from_f32<T>(acc[i][ci]);
+  }
+}
+
+// dx[e] = T(sum over splits z = 0, 1, ... of ws[z * MN + e]), in that order.
+template <typename T>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+conv2d_dx_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dx, long long MN,
+                        int splits) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
+       e += stride) {
+    float s = 0.0f;
+    for (int z = 0; z < splits; ++z) s += ws[z * MN + e];
+    dx[e] = from_f32<T>(s);
+  }
+}
+
+template <typename T>
+int launch_dx(const void* g, const void* w, void* dx, void* ws, int B, int H, int W,
+              int Cin, int Cout, int KH, int KW, int bn, int splits, int tps,
+              cudaStream_t s) {
+  const T* gp = static_cast<const T*>(g);
+  const T* wp = static_cast<const T*>(w);
+  T* dxp = static_cast<T*>(dx);
+  float* wsp = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  const long long M = (long long)B * H * W;
+  if (bn <= 16) {
+    const int seg = bn == 16 ? 4 : 8;  // the kernel's TM: pixels per row segment
+    const long long segs = (long long)B * H * ((W + seg - 1) / seg);
+    const long long grid_m = (segs + 15) / 16;
+    if (grid_m > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)grid_m, (unsigned)splits);
+    // w staged for up to SC_TAPS taps x 64 output channels x bn
+    const int w_bytes = (tps < SC_TAPS ? tps : SC_TAPS) * 64 * bn * (int)sizeof(float);
+    auto kern = bn == 4 ? conv2d_dx_kernel_small_cin<T, 4>
+                : bn == 8 ? conv2d_dx_kernel_small_cin<T, 8>
+                          : conv2d_dx_kernel_small_cin<T, 16>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, w_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, DX_THREADS, w_bytes, s>>>(gp, wp, dxp, wsp, B, H, W, Cin, Cout, KH, KW, tps);
+  } else {
+    const long long grid_m = (M + DX_BM - 1) / DX_BM;
+    const long long grid_n = (Cin + bn - 1) / bn;
+    if (grid_m > 2147483647LL || grid_n > 65535LL)
+      return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)grid_m, (unsigned)grid_n, (unsigned)splits);
+    // the threads' totals: 8 x bn/16 floats each
+    const int total_bytes = 8 * (bn / 16) * DX_THREADS * (int)sizeof(float);
+    auto kern = bn == 64 ? conv2d_dx_kernel<T, 64> : conv2d_dx_kernel<T, 128>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, total_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, DX_THREADS, total_bytes, s>>>(gp, wp, dxp, wsp, B, H, W, Cin, Cout, KH, KW,
+                                               tps);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long MN = M * Cin;
+  long long blocks = (MN + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  if (blocks > 4096) blocks = 4096;
+  conv2d_dx_reduce_kernel<T><<<(unsigned)blocks, REDUCE_THREADS, 0, s>>>(wsp, dxp, MN,
+                                                                        splits);
+  return (int)cudaGetLastError();
 }
 
 // One pixel chunk [blockIdx.z * chunk, +chunk) of dW, written to
@@ -330,32 +639,36 @@ conv2d_dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (g, w and dx share it).  Returns the
-// cudaError_t of the launch (0 on success); the caller raises on non-zero.
-extern "C" int conv2d_dx_launch(const void* g, const void* w, void* dx, int B,
-                                int H, int W, int Cin, int Cout, int KH,
-                                int KW, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (g, w and dx share it).  The plan
+// (kernels/conv2d.py::dx_plan): bn, the N tile, picks the variant (4, 8
+// or 16: small-Cin, Cin <= bn; 64 or 128: tiled); the taps are cut into
+// `splits` runs of `taps_per_split`.  With one split the GEMM writes dx
+// directly and ws may be null; otherwise ws holds splits * B*H*W*Cin
+// floats and a second kernel sums it into dx in a fixed order.  Returns
+// the cudaError_t of the launches (0 on success); the caller raises on
+// non-zero.
+extern "C" int conv2d_dx_launch(const void* g, const void* w, void* dx, void* ws,
+                                int B, int H, int W, int Cin, int Cout, int KH, int KW,
+                                int bn, int splits, int taps_per_split, int dtype,
+                                void* stream) {
   const long long M = (long long)B * H * W;
-  if (M <= 0 || Cin <= 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
-  const long long grid_m = (M + BM - 1) / BM;
-  const long long grid_n = (Cin + BN - 1) / BN;
-  if (grid_m > 2147483647LL || grid_n > 65535LL)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)grid_m, (unsigned)grid_n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    conv2d_dx_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(w),
-        static_cast<float*>(dx), B, H, W, Cin, Cout, KH, KW);
-  } else if (dtype == 1) {
-    conv2d_dx_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx),
-        B, H, W, Cin, Cout, KH, KW);
-  } else {
+  const int taps = KH * KW;
+  const bool small = bn == 4 || bn == 8 || bn == 16;
+  if (M <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 ||
+      (long long)H * W > 2147483647LL || !(small || bn == 64 || bn == 128) ||
+      (small && Cin > bn) || splits <= 0 || taps_per_split <= 0 ||
+      (long long)(splits - 1) * taps_per_split >= taps ||
+      (long long)splits * taps_per_split < taps || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (splits > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dx<float>(g, w, dx, ws, B, H, W, Cin, Cout, KH, KW, bn, splits,
+                            taps_per_split, s);
+  if (dtype == 1)
+    return launch_dx<__nv_bfloat16>(g, w, dx, ws, B, H, W, Cin, Cout, KH, KW, bn, splits,
+                                    taps_per_split, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x and g share it); dw is float32.

@@ -9,10 +9,13 @@ the output in q's dtype.  KV may divide H (query head h reads kv head
 h // (H/KV)); with KV == H it is the Pallas contract exactly.
 
 What bounds it on an H100: 4*D operations per live (query, key) pair,
-so operations; the kernel runs IEEE fp32 FMA on the CUDA cores (fp32
-parity rules out TF32), so its bound is the fp32 rate.  Fully masked kv
-tiles are never visited, so a window W costs O(S*W).  Operands are read
-through their strides: the model's (B, S, H, D) projections come in as
+so operations.  The dtype picks the kernel: bf16 runs ``mma.sync`` on the
+tensor cores (bound: the bf16 tensor-core rate), with P split into two
+bf16 parts so that the output stays within one bf16 rounding of the fp32
+reference; fp32 runs IEEE fp32 FMA on the CUDA cores (fp32 parity rules
+out TF32; bound: the fp32 rate).  Fully masked kv tiles are never
+visited, so a window W costs O(S*W).  Operands are read through their
+strides: the model's (B, S, H, D) projections come in as
 ``transpose(1, 2)`` views, and the output is allocated (B, S, H, D) and
 returned as the same kind of view, so neither side copies.
 

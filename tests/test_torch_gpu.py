@@ -22,7 +22,13 @@ import torch
 
 from repro_torch.core.backends import get_backend
 from repro_torch.core.cluster.cluster import HeteroCluster
-from repro_torch.kernels.conv2d import Conv2dFunction, conv2d, conv2d_dw, conv2d_dx
+from repro_torch.kernels.conv2d import (
+    Conv2dFunction,
+    conv2d,
+    conv2d_dw,
+    conv2d_dx,
+    dx_plan,
+)
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.ref import (
     conv2d_dw_ref,
@@ -183,6 +189,45 @@ def test_dw_kernel_reruns_bit_identical(dev, shape):
     assert torch.equal(conv2d_dw(tx, tg, 5, 5), conv2d_dw(tx, tg, 5, 5))
 
 
+# K2's variants: Cin on both sides of the small-Cin boundary (16), and a
+# small-M, large-K shape (16 pixels, K = 25 * 1500) that splits the taps
+DX_CIN_SHAPES = [(2, 9, 11, cin, 24, 5) for cin in (1, 3, 4, 5, 16, 17, 64, 65)] + [
+    (1, 4, 4, 40, 1500, 5),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,h,w,cin,cout,k", DX_CIN_SHAPES)
+def test_dx_kernel_variants_match_plain_version(dev, b, h, w, cin, cout, k, dtype):
+    tdtype, atol = TOL[dtype]
+    _, tw, tg = _bwd_inputs(dev, b, h, w, cin, cout, k, tdtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = dx_plan(tg.shape, k, k, cin, tg.element_size(), sms)
+    assert plan.variant == ("small_cin" if cin <= 16 else "tiled")
+    if h * w == 16:
+        assert plan.splits > 1
+    before = conv2d_dx.launches
+    got = conv2d_dx(tg, tw)
+    torch.cuda.synchronize()
+    assert conv2d_dx.launches == before + 1
+    assert got.dtype == tdtype and tuple(got.shape) == (b, h, w, cin)
+    want = conv2d_dx_ref(tg.float(), tw.float())
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("shape", [(8, 32, 32, 3, 167, 5), (8, 16, 16, 500, 500, 5)])
+def test_dx_kernel_reruns_bit_identical(dev, shape, dtype):
+    """The training path's C1 and C2 microbatch shards take the split-K
+    path (C1 the small-Cin variant too); the splits reduce in a fixed
+    order, so a rerun gives the same bits."""
+    _, tw, tg = _bwd_inputs(dev, *shape, TOL[dtype][0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = dx_plan(tg.shape, 5, 5, shape[3], tg.element_size(), sms)
+    assert plan.splits > 1 and plan.variant == ("small_cin" if shape[3] <= 16 else "tiled")
+    assert torch.equal(conv2d_dx(tg, tw), conv2d_dx(tg, tw))
+
+
 def test_conv2d_function_matches_plain_autograd(dev):
     tx, tw, tg = _bwd_inputs(dev, 2, 8, 8, 6, 10, 5, torch.float32)
     x1, w1 = tx.clone().requires_grad_(), tw.clone().requires_grad_()
@@ -273,6 +318,40 @@ def test_flash_attention_reads_strided_views(dev):
                           causal=True, window=20)
     want = flash_attention(*(x.transpose(1, 2).contiguous() for x in (q, k, v)),
                            causal=True, window=20)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# the bf16 tensor-core kernel's edges: D 20 (not a multiple of 8, so the
+# scalar-load path), S 130 with hymba's GQA 25/5, one query against 1024 keys
+BF16_ATTN_SHAPES = [(2, 2, 2, 40, 70, 20), (1, 25, 5, 130, 130, 64),
+                    (1, 25, 5, 1, 1024, 64)]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, None)])
+@pytest.mark.parametrize("b,h,kv,s,t,d", BF16_ATTN_SHAPES)
+def test_flash_attention_bf16_edges_match_plain_version(dev, b, h, kv, s, t, d, causal,
+                                                        window):
+    q, k, v = _attn_inputs(dev, torch.bfloat16, b, h, kv, s, t, d, seed=3)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                               window=window).to(torch.bfloat16).double()
+    torch.testing.assert_close(got.double(), want, atol=BF16_OUT_TOL[0],
+                               rtol=BF16_OUT_TOL[1])
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_flash_attention_reads_unaligned_row_strides(dev, dtype):
+    """Views whose row stride (70 elements per head) is not a multiple of
+    16 bytes: the bf16 kernel loads them with scalar loads into the same
+    layout, and both dtypes give the contiguous copy's bits."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, TOL[dtype][0])[..., :64].transpose(1, 2)
+               for shape in ((2, 90, 10, 70), (2, 90, 5, 70), (2, 90, 5, 70)))
+    assert q.stride(2) % 8 and k.stride(1) % 8
+    got = flash_attention(q, k, v, causal=True, window=32)
+    want = flash_attention(*(x.contiguous() for x in (q, k, v)), causal=True, window=32)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 

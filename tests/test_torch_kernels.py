@@ -26,7 +26,8 @@ from repro.core.cluster.protocol import bwd_shard as jax_bwd_shard
 from repro.core.cluster.protocol import conv_shard as jax_conv_shard
 from repro.kernels.conv2d import conv2d_dw_pallas, conv2d_dx_pallas, conv2d_pallas
 from repro_torch.kernels import ops
-from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dw_split
+from repro_torch.kernels import conv2d as conv2d_module
+from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dw_split, dx_plan
 from repro_torch.kernels.ref import (
     conv2d_dw_ref,
     conv2d_dx_ref,
@@ -152,6 +153,82 @@ def test_dw_split_covers_the_pixels_once(x_shape, cout, splits):
     assert got == splits and chunk % 16 == 0
     assert (got - 1) * chunk < pixels <= got * chunk
     assert dw_split(x_shape, 5, 5, cout, 132) == (got, chunk)
+
+
+# K2's plans: the test sweep, C1 and C2 at batch 32 (chip_smoke.py's
+# kernel_bwd) and the training path's microbatch shards, in both dtypes
+DX_PLAN_CASES = [
+    ((b, h, w, cout), k, cin, itemsize)
+    for (b, h, w, cin, cout, k) in SHAPES + [
+        (32, 32, 32, 3, 500, 5), (32, 16, 16, 500, 1500, 5),
+        (8, 32, 32, 3, 167, 5), (8, 16, 16, 500, 500, 5),
+        (8, 7, 16, 500, 1500, 5), (1, 4, 4, 65, 9, 7),
+    ] + [(2, 8, 8, cin, 12, 5) for cin in (1, 4, 5, 9, 16, 17, 64, 65)]
+    for itemsize in (4, 2)
+]
+
+
+@pytest.mark.parametrize("g_shape,k,cin,itemsize", DX_PLAN_CASES)
+def test_dx_plan_splits_cover_every_tap_once(g_shape, k, cin, itemsize):
+    """K2's split of the K axis: runs of whole taps, none empty, that
+    cover the kh*kw taps exactly once; a split only where it lowers the
+    cost of (waves of blocks over the card's block slots) x (taps per
+    split), so a shape whose tiles fill the slots in whole waves does not
+    split."""
+    plan = dx_plan(g_shape, k, k, cin, itemsize, 132)
+    taps = k * k
+    covered = [t for z in range(plan.splits)
+               for t in range(z * plan.taps_per_split,
+                              min((z + 1) * plan.taps_per_split, taps))]
+    assert covered == list(range(taps))
+    assert (plan.splits - 1) * plan.taps_per_split < taps
+    per_sm = conv2d_module._DX_BLOCKS_PER_SM[
+        "tiled" if plan.variant == "tiled" else plan.bn]
+    slots = per_sm * 132
+
+    def cost(splits):
+        return -(-plan.tiles * splits // slots) * -(-taps // splits)
+
+    assert cost(plan.splits) <= cost(1)
+    if plan.splits > 1:
+        assert cost(plan.splits) < cost(1)
+    if plan.tiles % slots == 0:
+        assert plan.splits == 1
+
+
+@pytest.mark.parametrize("cin", list(range(1, 18)) + [64, 65, 500])
+def test_dx_plan_small_cin_tile_fits_cin(cin):
+    """Cin <= 16 takes the small-Cin variant, whose N tile holds Cin and
+    is at most 4x Cin (or 16); larger Cin the 64- or 128-wide tiles."""
+    plan = dx_plan((8, 32, 32, 167), 5, 5, cin, 4, 132)
+    if cin <= 16:
+        assert plan.variant == "small_cin"
+        assert cin <= plan.bn <= max(4 * cin, 16) and plan.bn in (4, 8, 16)
+    else:
+        assert plan.variant == "tiled" and plan.bn == (64 if cin <= 64 else 128)
+
+
+def test_dx_plan_is_a_function_of_the_shapes():
+    """The same shapes give the same plan (a rerun sums in the same
+    order); the training path's microbatch shards (64 tiles) split in
+    four, C1 and C2 at batch 32 (256 tiles, one wave of 264 slots) do
+    not split."""
+    for g_shape, k, cin, itemsize in DX_PLAN_CASES:
+        assert dx_plan(g_shape, k, k, cin, itemsize, 132) == dx_plan(
+            tuple(g_shape), k, k, cin, itemsize, 132)
+    assert dx_plan((8, 32, 32, 167), 5, 5, 3, 4, 132) == ("small_cin", 4, 64, 4, 7)
+    assert dx_plan((8, 16, 16, 500), 5, 5, 500, 4, 132) == ("tiled", 128, 64, 4, 7)
+    assert dx_plan((32, 32, 32, 500), 5, 5, 3, 4, 132) == ("small_cin", 4, 256, 1, 25)
+    assert dx_plan((32, 16, 16, 1500), 5, 5, 500, 4, 132) == ("tiled", 128, 256, 1, 25)
+
+
+@pytest.mark.parametrize("g_shape,k,cin,itemsize", DX_PLAN_CASES)
+def test_dx_plan_workspace_stays_within_its_cap(g_shape, k, cin, itemsize):
+    """The fp32 split workspace is at most 8x dX's bytes in g's dtype."""
+    plan = dx_plan(g_shape, k, k, cin, itemsize, 132)
+    dx_elems = g_shape[0] * g_shape[1] * g_shape[2] * cin
+    ws_bytes = 4 * dx_elems * plan.splits if plan.splits > 1 else 0
+    assert ws_bytes <= 8 * dx_elems * itemsize
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,k", [(2, 8, 8, 3, 5, 3), (2, 7, 6, 4, 21, 5)])
