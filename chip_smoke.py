@@ -8,28 +8,33 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 1. device — the card's name, and ``nvidia-smi``'s name and power limit;
 2. build  — ``nvcc`` builds every kernel library of the port from
    ``src/repro_torch/kernels/csrc/``, all sources at once (seconds, cache
-   hit, ptxas registers and spills);
+   hit, and ptxas's registers, spills and shared memory for each kernel
+   by name); a spill in K1's or K3's kernel fails the run;
 3. kernel — the forward conv K1 against its plain PyTorch version
    (``conv2d_ref``) on the card, on the shapes of tests/test_kernels.py,
-   the paper's C1 and C2 layers, a ragged and an empty Cout and a 7-row
-   strip, in fp32 and bf16; with median times of the kernel, the plain
-   version, ``F.conv2d`` (cuDNN, TF32 off: a yardstick the port never
-   calls), the backend's numpy round-trip copies, and the kernel's bound;
+   the paper's C1 and C2 layers, a ragged and an empty Cout, a Cout that
+   is not a multiple of 4 (4-byte copies of w) and a 7-row strip, in
+   fp32 and bf16, each record with ``fwd_plan``'s plan; with median times
+   of the kernel, the plain version, ``F.conv2d`` (cuDNN, TF32 off: a
+   yardstick the port never calls), the backend's numpy round-trip
+   copies, and the kernel's bound;
 4. kernel_bwd — dX (K2) and dW (K3) against ``conv2d_dx_ref`` and
    ``conv2d_dw_ref`` the same way, at the test sweep's shapes, C1 and C2
-   at batch 32, a ragged and an empty Cout, no pixels and a 7-row strip;
-   the yardsticks are ``torch.nn.grad.conv2d_input``/``conv2d_weight``.
-   K2 also at Cin 1, 3, 4, 5, 16, 17, 64 and 65 (both sides of its
-   small-Cin variant) and on a small-M, large-K shape whose taps split,
-   each record with ``dx_plan``'s plan.  K2 runs twice on C1 and C2 and
-   on the train run's microbatch shards, K3 twice on C1, and each must
-   give the same bits;
+   at batch 32, a ragged and an empty Cout, a Cout that is not a
+   multiple of 4, no pixels and a 7-row strip, each record with
+   ``dx_plan``'s or ``dw_plan``'s plan; the yardsticks are
+   ``torch.nn.grad.conv2d_input``/``conv2d_weight``.  K2 also at Cin 1,
+   3, 4, 5, 16, 17, 64 and 65 (both sides of its small-Cin variant) and
+   on a small-M, large-K shape whose taps split.  K2 runs twice on C1
+   and C2 and on the train run's microbatch shards, K3 twice on C1 at
+   batch 32 and on a C2 shard, and each must give the same bits;
 5. serve  — the port's ``run_serve`` on the paper's headline network
    ``cifar_cnn_500_1500`` over ``cuda,cuda,numpy``: 16 requests, every
    one ``ok``, 4 of them held against a single-device float64 chain on
    the card, inside a ``torch.profiler`` trace of the card;
 6. main-path shapes (serve) — K1 against its plain version at every
-   shard shape the serve run gave it, timed in isolation;
+   shard shape the serve run gave it, run twice (the same bits), timed
+   in isolation;
 7. train — the port's ``run_hetero(train_pipeline=True)`` on the same
    network at full width over ``cuda,cuda,numpy``: batch 32, 4
    microbatches, 3 steps, inside a profiler trace.  Every loss finite;
@@ -42,7 +47,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``conv_fn_for_backend("cuda")`` (``Conv2dFunction``: K1, K2 and K3 on
    one device), held against the first float64 step;
 9. main-path shapes (train) — K1, K2 and K3 at every shape the train run
-   gave them, against their plain versions, timed in isolation;
+   gave them, against their plain versions (K1 and K3 run twice: the
+   same bits), timed in isolation;
 10. kernel_attn — flash attention K4 against ``flash_attention_ref`` in
    float64 on the card: tests/test_kernels.py's sweep (fp32/bf16, causal
    on/off, window None/16), a GQA case, hymba-1.5b's prefill shape
@@ -85,6 +91,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -120,16 +127,18 @@ SEED = 0
 # over max |logit| (fp32 throughout; see PERF.md for the choice)
 LM_RTOL = 1e-3
 # the wrappers' kernels by trace symbol: the first counts launches (K2's
-# two variants share it), all of them count time (K2 reduces its tap
-# splits and K3 its pixel chunks in a second kernel)
+# two variants share it), all of them count time (K1 and K2 reduce their
+# tap splits and K3 its pixel chunks in a second kernel)
 SYMBOLS = {
-    "conv2d_fwd": ("conv2d_fwd_kernel",),
+    "conv2d_fwd": ("conv2d_fwd_kernel", "conv2d_fwd_reduce_kernel"),
     "conv2d_dx": ("conv2d_dx_kernel", "conv2d_dx_reduce_kernel"),
     "conv2d_dw": ("conv2d_dw_kernel", "conv2d_dw_reduce_kernel"),
     "flash_attention": ("flash_attn_fwd_kernel",),
     "ssd": ("ssd_fwd_kernel",),
 }
 CONV_KINDS = ("conv2d_fwd", "conv2d_dx", "conv2d_dw")
+# kernels that must build without spills (ptxas's report)
+NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dw_kernel")
 
 
 def emit(obj: dict) -> None:
@@ -146,6 +155,33 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(report: str, nvcc: str) -> list:
+    """Each kernel of an ``nvcc -Xptxas -v`` report: its name (demangled
+    by the toolkit's ``cu++filt`` where there is one), registers, spill
+    bytes and static shared memory."""
+    recs = []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            recs.append({"kernel": m.group(1)})
+            continue
+        if not recs:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            recs[-1]["spill_stores"], recs[-1]["spill_loads"] = map(int, m.groups())
+        if m := re.search(r"Used (\d+) registers", ln):
+            recs[-1]["registers"] = int(m.group(1))
+        if m := re.search(r"(\d+) bytes smem", ln):
+            recs[-1]["smem"] = int(m.group(1))
+    filt = Path(nvcc).parent / "cu++filt"
+    if recs and filt.exists():
+        out = subprocess.run([str(filt)], input="\n".join(r["kernel"] for r in recs),
+                             capture_output=True, text=True, timeout=60, check=True)
+        for r, name in zip(recs, out.stdout.splitlines()):
+            r["kernel"] = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", name)
+    return recs
 
 
 def events_ms(fn, reps: int, rounds: int = 3) -> float:
@@ -236,7 +272,14 @@ class Kernels:
     called as ``f(x, w, g)``."""
 
     def __init__(self):
-        from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dx_plan
+        from repro_torch.kernels.conv2d import (
+            conv2d,
+            conv2d_dw,
+            conv2d_dx,
+            dw_plan,
+            dx_plan,
+            fwd_plan,
+        )
         from repro_torch.kernels.flash_attn import flash_attention
         from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
         from repro_torch.kernels.ssd import ssd
@@ -245,7 +288,7 @@ class Kernels:
                         "conv2d_dw": conv2d_dw, "flash_attention": flash_attention,
                         "ssd": ssd}
         self.conv2d_ref = conv2d_ref
-        self.dx_plan = dx_plan
+        self.plans = {"conv2d_fwd": fwd_plan, "conv2d_dx": dx_plan, "conv2d_dw": dw_plan}
         self.calls = {  # (kernel, plain version)
             "conv2d_fwd": (lambda x, w, g: conv2d(x, w),
                            lambda x, w, g: conv2d_ref(x, w)),
@@ -255,12 +298,23 @@ class Kernels:
                           lambda x, w, g: conv2d_dw_ref(x, g, w.shape[0], w.shape[1])),
         }
 
+    def plan(self, kind, b, h, w, cin, cout, k, size, sms) -> dict:
+        """The conv kernel's plan (``fwd_plan``, ``dx_plan`` or
+        ``dw_plan``) for one shape, inputs of ``size`` bytes, on ``sms`` SMs."""
+        if kind == "conv2d_dx":
+            plan = self.plans[kind]((b, h, w, cout), k, k, cin, size, sms)
+        else:
+            plan = self.plans[kind]((b, h, w, cin), k, k, cout, size, sms)
+        return plan._asdict()
+
 
 def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
-                phase, copy=False):
+                phase, copy=False, rerun=False):
     """Run one kernel and its plain version on one shape; fail on a
-    mismatch.  Returns the JSON record of the shape, with median times
-    of the kernel, the plain version and the library yardstick."""
+    mismatch (and, with ``rerun``, if a second run gives other bits).
+    Returns the JSON record of the shape, with the kernel's plan and
+    median times of the kernel, the plain version and the library
+    yardstick."""
     rng = np.random.default_rng([SEED, b, h, w, cin, cout, k])
     xn = rng.standard_normal((b, h, w, cin)).astype(np.float32)
     wn = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
@@ -293,6 +347,8 @@ def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
         if not torch.allclose(got.double(), want, atol=atol, rtol=rtol):
             fail(f"{kind} {label}: kernel vs its plain version max abs err "
                  f"{err} beyond atol {atol} rtol {rtol}")
+        if rerun and not torch.equal(got, run(x, wt, g)):
+            fail(f"{kind} {label}: two runs gave different bits")
     flops, nbytes = conv_work(kind, b, h, w, cin, cout, k, dtype)
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     rec = {
@@ -304,11 +360,12 @@ def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes,
     }
-    if kind == "conv2d_dx" and not empty:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rec["plan"] = ks.dx_plan((b, h, w, cout), k, k, cin, itemsize(dtype), sms)._asdict()
     if empty:
         return rec
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec["plan"] = ks.plan(kind, b, h, w, cin, cout, k, itemsize(dtype), sms)
+    if rerun:
+        rec["bit_identical"] = True
     reps = reps_for(flops)
     rec["ms"] = events_ms(lambda: run(x, wt, g), reps)
     rec["plain_ms"] = events_ms(lambda: plain(x, wt, g), reps)
@@ -364,11 +421,13 @@ def read_counts(ks: Kernels, names=None) -> dict:
 
 def path_shapes(ks, kind, dev, shapes, phase, path):
     """The kernel against its plain version at every shape a main-path
-    run gave it; each record carries its launch count."""
+    run gave it (K1 and K3 run twice: the same bits); each record carries
+    its launch count."""
     recs = []
     for shape, n in sorted(shapes.items()):
         r = check_shape(ks, kind, dev, *shape, torch.float32,
-                        label=f"{path} x{n}", phase=phase)
+                        label=f"{path} x{n}", phase=phase,
+                        rerun=kind in ("conv2d_fwd", "conv2d_dw"))
         r.update(launches=n, path=path)
         emit(r)
         recs.append(r)
@@ -701,10 +760,14 @@ def main() -> int:
         built = dict(zip(libs, pool.map(_build.build, libs)))
     for lib in libs:
         b = built[lib]
+        kernels = ptxas_kernels(b.ptxas, _build._nvcc())
         emit({"phase": "build", "kernel": lib, "build_s": b.build_s,
               "cache_hit": b.cache_hit, "library": str(b.path.relative_to(ROOT)),
-              "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+              "ptxas": kernels})
+        for r in kernels:
+            if (any(k in r["kernel"] for k in NO_SPILL)
+                    and (r.get("spill_stores") or r.get("spill_loads"))):
+                fail(f"build: {r['kernel']} spills: {r}")
     ks = Kernels()
 
     # -- 3. K1 against its plain version ------------------------------------
@@ -720,6 +783,7 @@ def main() -> int:
         ("C1", (4, 32, 32, 3, 500, 5)),
         ("C2", (4, 16, 16, 500, 1500, 5)),
         ("ragged Cout 437", (4, 16, 16, 500, 437, 5)),
+        ("Cout 363, 4-byte copies", (4, 16, 16, 500, 363, 5)),
         ("Cout 0", (4, 16, 16, 500, 0, 5)),
         ("7-row strip", (4, 7, 16, 500, 1500, 5)),
     ]
@@ -733,6 +797,7 @@ def main() -> int:
         ("C1", (32, 32, 32, 3, 500, 5)),
         ("C2", (32, 16, 16, 500, 1500, 5)),
         ("ragged Cout 437", (8, 16, 16, 500, 437, 5)),
+        ("Cout 363, 4-byte copies", (8, 16, 16, 500, 363, 5)),
         ("Cout 0", (8, 16, 16, 500, 0, 5)),
         ("no pixels", (0, 16, 16, 500, 64, 5)),
         ("7-row strip", (8, 7, 16, 500, 1500, 5)),
@@ -753,6 +818,7 @@ def main() -> int:
     # K2 reruns give the same bits: C1 and C2 at batch 32 and the train
     # run's microbatch shards (split-K; C1's small-Cin variant)
     rng = np.random.default_rng(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, (b_, h_, w_, cin, cout) in (("C1", (32, 32, 32, 3, 500)),
                                            ("C2", (32, 16, 16, 500, 1500)),
                                            ("C1 microbatch shard", (8, 32, 32, 3, 167)),
@@ -763,21 +829,25 @@ def main() -> int:
         g_, w5 = gn.to(dev), wn.to(dev)
         if not torch.equal(ks.wrapper["conv2d_dx"](g_, w5), ks.wrapper["conv2d_dx"](g_, w5)):
             fail(f"kernel_bwd: two K2 runs on {label} gave different bits")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         emit({"phase": "kernel_bwd", "case": f"K2 rerun on {label}", "bit_identical": True,
-              "plan": ks.dx_plan(g_.shape, 5, 5, cin, 4, sms)._asdict()})
+              "plan": ks.plan("conv2d_dx", b_, h_, w_, cin, cout, 5, 4, sms)})
     del g_, w5
-    xc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 3)).astype(np.float32)).to(dev)
-    gc1 = torch.from_numpy(rng.standard_normal((32, 32, 32, 500)).astype(np.float32)).to(dev)
-    dw_a = ks.wrapper["conv2d_dw"](xc1, gc1, 5, 5)
-    dw_b = ks.wrapper["conv2d_dw"](xc1, gc1, 5, 5)
-    if not torch.equal(dw_a, dw_b):
-        fail("kernel_bwd: two K3 runs on C1 gave different bits")
-    zero = ks.wrapper["conv2d_dw"](xc1[:0], gc1[:0], 5, 5)
-    if tuple(zero.shape) != (5, 5, 3, 500) or bool(zero.any()):
+    # K3 reruns give the same bits: C1 at batch 32 and a training C2 shard
+    # (both split the pixel axis)
+    for label, (b_, h_, w_, cin, cout) in (("C1", (32, 32, 32, 3, 500)),
+                                           ("C2 shard", (8, 16, 16, 500, 459))):
+        x_ = torch.from_numpy(rng.standard_normal((b_, h_, w_, cin)).astype(np.float32)).to(dev)
+        g_ = torch.from_numpy(rng.standard_normal((b_, h_, w_, cout)).astype(np.float32)).to(dev)
+        if not torch.equal(ks.wrapper["conv2d_dw"](x_, g_, 5, 5),
+                           ks.wrapper["conv2d_dw"](x_, g_, 5, 5)):
+            fail(f"kernel_bwd: two K3 runs on {label} gave different bits")
+        emit({"phase": "kernel_bwd", "case": f"K3 rerun on {label}", "bit_identical": True,
+              "plan": ks.plan("conv2d_dw", b_, h_, w_, cin, cout, 5, 4, sms)})
+    zero = ks.wrapper["conv2d_dw"](x_[:0], g_[:0], 5, 5)
+    if tuple(zero.shape) != (5, 5, 500, 459) or bool(zero.any()):
         fail("kernel_bwd: K3 on no pixels is not zeros of the full shape")
-    emit({"phase": "kernel_bwd", "case": "K3 rerun on C1", "bit_identical": True,
-          "no_pixels_zeros": True})
+    emit({"phase": "kernel_bwd", "case": "K3 on no pixels", "no_pixels_zeros": True})
+    del x_, g_
 
     c1, c2 = 500, 1500
     backends = ["cuda", "cuda", "numpy"]

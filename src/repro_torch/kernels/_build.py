@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``build/repro_torch_ext/`` at the repository root (a directory
-``.gitignore`` lists).  The library is named by a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is a cache hit.
+``.gitignore`` lists).  The library is named by a hash of its source, the
+shared headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one is a cache hit.
 It is bound through ``ctypes``: pointers come from ``tensor.data_ptr()``
 and the stream from ``torch.cuda.current_stream().cuda_stream``.
 
@@ -53,7 +54,7 @@ class BuiltLibrary:
 _SIGNATURES = {
     "conv2d_fwd": {
         "conv2d_fwd_launch": (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
             ctypes.c_int,
         ),
         "conv2d_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -64,7 +65,7 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "conv2d_dw_launch": (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
@@ -115,8 +116,9 @@ def build(name: str) -> BuiltLibrary:
         if name in _LOADED:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}_{digest}.so"

@@ -50,91 +50,46 @@
 //   M = kh*kw*Cin, N = Cout, K = B*H*W pixels,
 //   A[(i,j,ci), p] = x[b, h + i - ph, w + j - pw, ci],  B[p, co] = g[p, co]
 //
-// Its (M, N) output is the HWIO dW as it lies.  At the paper's C1 layer
-// (M = 75) there are too few output tiles to fill 132 SMs, so the pixel
-// axis is split into chunks (blockIdx.z), each written to its own slice
-// of an fp32 workspace, and conv2d_dw_reduce_kernel then sums the slices
-// in a fixed order.  No float atomics: two runs on the same inputs give
-// a bit-identical dW, which the batch-axis partition's exact sum of
-// per-device dW relies on.
-//
-// What bounds K3: the same operation count, so the fp32 rate.  It is a
-// plain, right first version: 64x64 output tiles, 16-deep slabs in
-// shared memory, a 4x4 register tile per thread, IEEE fp32 FMA, ragged
-// M, N and K edges masked with zeros.  No cp.async/TMA yet.  Its
-// reduction is long (8,192 pixels for dW of a 32-image batch), so each
-// thread sums FOLD slabs (256 terms) into a partial tile before adding
-// it to its total.
+// Its (M, N) output is the HWIO dW as it lies.  What bounds it: the same
+// operation count as the forward, IEEE fp32 FMA, so the 67 TFLOP/s fp32
+// rate (4.585 ms for the C2 layer at batch 32).  Both operands are rows
+// of NHWC tensors read pixel by pixel: a pixel's x row, shifted by a tap,
+// holds a run of dW rows (contiguous in ci) and its g row all of dW's
+// columns.  So a slab of 8 pixels lands in shared memory in the layout
+// the math reads, with no transpose.  The design:
+// - Tiles.  128 dW rows x 128 output channels per block (128 x 64 when
+//   Cout <= 64); 256 threads, each an 8 x 8 patch read as float4s (64
+//   FMAs per 16 shared loads).
+// - Index math per block and per slab.  Each thread copies the same dW
+//   rows in every slab (4 rows at Cin % 4 == 0, else 4 scattered rows),
+//   so their taps and channels are decoded once per block (a row group of
+//   4 never straddles two taps when Cin % 4 == 0); its pixel in the slab
+//   advances by 8 with no division.  The pad test is one compare pair per
+//   (row tap, pixel).
+// - Staging.  A 3-stage ring of x and g slabs in shared memory, filled by
+//   cp.async: 16-byte copies where the base is 16-byte aligned and the
+//   row (Cin for x, Cout for g) a multiple of 4 floats, 4-byte copies
+//   otherwise (the training path's Cout 363, 459, 507), and the zero-fill
+//   form for padded taps and ragged pixel, row and channel edges.  bf16
+//   inputs are loaded and widened as they are staged.
+// - Two-level fp32 sum.  Each thread sums DW_FOLD slabs (256 pixels) in
+//   registers, then folds them into its running total, which lives in its
+//   own column of dynamic shared memory, so two blocks fit an SM.
+// - Split of the pixel axis (blockIdx.z).  kernels/conv2d.py::dw_plan
+//   picks the split that minimises (waves of blocks over the resident
+//   block slots) x (pixels per chunk), in whole slabs, the fp32 workspace
+//   capped, from the shapes and the SM count alone.  At the paper's C1
+//   layer (M = 75: one row tile, 41% of it padding) the split is what
+//   fills the card.  Each chunk writes its own workspace slice and
+//   conv2d_dw_reduce_kernel sums the slices in a fixed order.  No float
+//   atomics: two runs on the same inputs give a bit-identical dW, which
+//   the batch-axis partition's exact sum of per-device dW relies on.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
 // with a plain C interface, bound through ctypes.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv2d_common.cuh"
 
 namespace {
-
-// K3's tile
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 16;        // reduction slab per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 tile
-constexpr int APAD = 4;       // shared-memory row pad against bank conflicts
-constexpr int FOLD = 16;      // slabs summed in a partial before folding
-constexpr int REDUCE_THREADS = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ void zero(float t[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t[i][j] = 0.0f;
-}
-
-// acc += part; part = 0
-__device__ __forceinline__ void fold(float acc[4][4], float part[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] += part[i][j];
-      part[i][j] = 0.0f;
-    }
-}
-
-// acc += As^T-slab x Bs-slab: thread (ty, tx) owns rows ty + 16 i and
-// columns tx + 16 j of the block's 64 x 64 tile.
-template <int LDA, int LDB>
-__device__ __forceinline__ void mma_slab(const float (*As)[LDA],
-                                         const float (*Bs)[LDB], int ty,
-                                         int tx, float acc[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-  }
-}
 
 // -- K2: dX -------------------------------------------------------------------
 
@@ -466,18 +421,12 @@ conv2d_dx_kernel_small_cin(const T* __restrict__ g, const T* __restrict__ w,
   }
 }
 
-// dx[e] = T(sum over splits z = 0, 1, ... of ws[z * MN + e]), in that order.
+// dx[e] = T(sum over the tap splits of ws), in split order
 template <typename T>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 conv2d_dx_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dx, long long MN,
                         int splits) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
-       e += stride) {
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += ws[z * MN + e];
-    dx[e] = from_f32<T>(s);
-  }
+  split_sum<T>(ws, dx, MN, splits);
 }
 
 template <typename T>
@@ -522,119 +471,241 @@ int launch_dx(const void* g, const void* w, void* dx, void* ws, int B, int H, in
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long MN = M * Cin;
-  long long blocks = (MN + REDUCE_THREADS - 1) / REDUCE_THREADS;
-  if (blocks > 4096) blocks = 4096;
-  conv2d_dx_reduce_kernel<T><<<(unsigned)blocks, REDUCE_THREADS, 0, s>>>(wsp, dxp, MN,
-                                                                        splits);
+  conv2d_dx_reduce_kernel<T><<<split_sum_blocks(MN), REDUCE_THREADS, 0, s>>>(wsp, dxp, MN,
+                                                                           splits);
   return (int)cudaGetLastError();
 }
 
-// One pixel chunk [blockIdx.z * chunk, +chunk) of dW, written to
-// out + blockIdx.z * M * Cout (the workspace slice, or dW itself when
-// there is one chunk).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv2d_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 float* __restrict__ out, int B, int H, int W, int Cin,
-                 int Cout, int KH, int KW, long long chunk) {
-  __shared__ float As[BK][BM + APAD];  // As[pixel][row of dW]
-  __shared__ float Bs[BK][BN];         // Bs[pixel][co]
+// -- K3: dW -------------------------------------------------------------------
+
+constexpr int DW_BM = 128;     // dW rows ((tap, ci) pairs) per block
+constexpr int DW_BK = 8;       // pixels per slab
+constexpr int DW_STAGES = 3;   // slabs in the cp.async ring
+constexpr int DW_THREADS = 256;
+constexpr int DW_FOLD = 32;    // slabs (256 pixels) summed in registers before folding
+
+// bytes of dynamic shared memory: the ring of A and B slabs, then the
+// threads' running totals (8 x NT/16 floats each)
+template <int NT>
+constexpr int dw_smem_bytes() {
+  return (DW_STAGES * DW_BK * (DW_BM + NT) + 8 * (NT / 16) * DW_THREADS) * (int)sizeof(float);
+}
+
+// One pixel chunk [blockIdx.z * chunk, +chunk) of a DW_BM x NT tile of
+// dW, written to out + blockIdx.z * M * Cout (the workspace slice, or dW
+// itself when there is one chunk).  VA: x copied 16 bytes at a time (Cin
+// % 4 == 0, x 16-byte aligned, fp32), else element by element; VB: the
+// same for g (Cout % 4 == 0).
+template <typename T, int NT, bool VA, bool VB>
+__global__ void __launch_bounds__(DW_THREADS, 2)
+conv2d_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ out,
+                 int B, int H, int W, int Cin, int Cout, int KH, int KW, long long chunk) {
+  constexpr int TN = NT / 16;     // columns per thread
+  constexpr int AR = VA ? 1 : 4;  // row groups each thread copies per slab
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                               // [stage][pixel][dW row]
+  float* Bs = As + DW_STAGES * DW_BK * DW_BM;     // [stage][pixel][channel]
+  float* total = Bs + DW_STAGES * DW_BK * NT;     // [8 * TN][DW_THREADS]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long long HW = (long long)H * W;
+  const int HW = H * W;
   const long long P = (long long)B * HW;
   const int M = KH * KW * Cin;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * DW_BM;
+  const int n0 = blockIdx.y * NT;
   const long long p_begin = (long long)blockIdx.z * chunk;
   const long long p_end = p_begin + chunk < P ? p_begin + chunk : P;
-  const int ph = KH / 2;
-  const int pw = KW / 2;
+  const int n_slabs = (int)((p_end - p_begin + DW_BK - 1) / DW_BK);
   out += (long long)blockIdx.z * M * Cout;
 
-  // A-slab loader: each thread owns one dW row (tap i, j and channel ci,
-  // decoded once; adjacent threads walk adjacent ci, adjacent addresses
-  // of NHWC x) and gathers it at 4 pixels of each slab.
-  const int a_m = tid % BM;
-  const int a_p = tid / BM;  // 0..3; pixels a_p + 4 q
-  const int row = m0 + a_m;
-  const bool row_ok = row < M;
-  int di = 0, dj = 0, ci = 0;
-  if (row_ok) {
-    const int tap = row / Cin;
-    ci = row - tap * Cin;
-    di = tap / KW;
-    dj = tap - di * KW;
+  // every copy of this thread is of pixel tid / 32 of the slab: p, at
+  // (oh, ow) of its image, walked 8 pixels on per slab
+  const int s_px = tid >> 5;
+  long long p = p_begin + s_px;
+  int oh, ow;
+  {
+    const int rem = (int)(p % HW);
+    oh = rem / W;
+    ow = rem - oh * W;
   }
-  // B-slab loader: adjacent threads walk adjacent output channels.
-  const int b_n = tid % BN;
-  const int b_p = tid / BN;  // 0..3; pixels b_p + 4 q
-
-  float acc[4][4], part[4][4];
-  zero(acc);
-  zero(part);
-  int slab = 0;
-
-  for (long long p0 = p_begin; p0 < p_end; p0 += BK) {
+  // A loader: dW rows a_row (4 of them from there at Cin % 4 == 0, one
+  // tap) or a_row + 32 r, each row's tap shift and channel decoded once
+  const int a_row = VA ? (tid & 31) * 4 : tid & 31;
+  int a_off[AR], a_dh[AR], a_dw[AR];
+  bool a_ok[AR];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long p = p0 + a_p + 4 * q;
-      float v = 0.0f;
-      if (row_ok && p < p_end) {
-        const long long b = p / HW;
-        const long long rem = p - b * HW;
-        const int oh = (int)(rem / W);
-        const int ow = (int)(rem - (long long)oh * W);
-        const int ih = oh + di - ph;
-        const int iw = ow + dj - pw;
-        if (ih >= 0 && ih < H && iw >= 0 && iw < W) {
-          v = to_f32(x[((b * H + ih) * W + iw) * Cin + ci]);
-        }
+  for (int r = 0; r < AR; ++r) {
+    const int row = m0 + a_row + 32 * r;
+    a_ok[r] = row < M;
+    const int tap = a_ok[r] ? row / Cin : 0;
+    const int ci = a_ok[r] ? row - tap * Cin : 0;
+    const int di = tap / KW;
+    a_dh[r] = di - KH / 2;
+    a_dw[r] = tap - di * KW - KW / 2;
+    a_off[r] = (a_dh[r] * W + a_dw[r]) * Cin + ci;  // x offset from pixel p's row
+  }
+  // B loader: channels b_n (4 of them from there) or b_n + 32 r
+  const int b_n = VB ? (tid & 31) * 4 : tid & 31;
+
+  auto load_slab = [&](int st) {
+    const bool p_ok = p < p_end;
+    float* as = As + (st * DW_BK + s_px) * DW_BM + a_row;
+#pragma unroll
+    for (int r = 0; r < AR; ++r) {
+      const bool ok = p_ok && a_ok[r] && (unsigned)(oh + a_dh[r]) < (unsigned)H &&
+                      (unsigned)(ow + a_dw[r]) < (unsigned)W;
+      const T* src = ok ? x + p * Cin + a_off[r] : x;
+      if constexpr (VA)
+        cp_async16(as, src, ok);
+      else
+        copy1(as + 32 * r, src, ok);
+    }
+    float* bs = Bs + (st * DW_BK + s_px) * NT + b_n;
+    const T* grow = g + p * Cout + n0 + b_n;
+    if constexpr (VB) {
+      if (NT == 128 || b_n < NT) {
+        const bool ok = p_ok && n0 + b_n < Cout;
+        cp_async16(bs, ok ? grow : g, ok);
       }
-      As[a_p + 4 * q][a_m] = v;
-    }
+    } else {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long p = p0 + b_p + 4 * q;
-      const int n = n0 + b_n;
-      Bs[b_p + 4 * q][b_n] =
-          (p < p_end && n < Cout) ? to_f32(g[p * Cout + n]) : 0.0f;
+      for (int r = 0; r < NT / 32; ++r) {
+        const bool ok = p_ok && n0 + b_n + 32 * r < Cout;
+        copy1(bs + 32 * r, ok ? grow + 32 * r : g, ok);
+      }
     }
-    __syncthreads();
-    mma_slab<BM + APAD, BN>(As, Bs, ty, tx, part);
-    __syncthreads();
-    if (++slab == FOLD) {
-      fold(acc, part);
-      slab = 0;
+    p += DW_BK;
+    ow += DW_BK;
+    while (ow >= W) {
+      ow -= W;
+      if (++oh == H) oh = 0;
     }
-  }
-  fold(acc, part);
+  };
+
+  float part[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      part[i][j] = 0.0f;
+      total[(i * TN + j) * DW_THREADS + tid] = 0.0f;
+    }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < n_slabs) load_slab(s);
+    cp_async_commit();
+  }
+  int st = 0;  // the stage of slab sl
+  int folded = 0;
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    cp_async_wait<DW_STAGES - 2>();  // slab sl has landed (this thread's copies)
+    __syncthreads();                 // ... everyone's; and slab sl - 1 is read
+    if (sl + DW_STAGES - 1 < n_slabs) load_slab(st == 0 ? DW_STAGES - 1 : st - 1);
+    cp_async_commit();
+    const float* as = As + st * DW_BK * DW_BM;
+    const float* bs = Bs + st * DW_BK * NT;
+#pragma unroll
+    for (int kk = 0; kk < DW_BK; ++kk) {
+      float a[8], bv[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * DW_BM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * DW_BM + 64 + ty * 4);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+#pragma unroll
+      for (int jj = 0; jj < TN / 4; ++jj) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bs + kk * NT + 64 * jj + tx * 4);
+        bv[4 * jj] = b4.x; bv[4 * jj + 1] = b4.y; bv[4 * jj + 2] = b4.z; bv[4 * jj + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], bv[j], part[i][j]);
+    }
+    st = st == DW_STAGES - 1 ? 0 : st + 1;
+    if (++folded == DW_FOLD) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          total[(i * TN + j) * DW_THREADS + tid] += part[i][j];
+          part[i][j] = 0.0f;
+        }
+      folded = 0;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < Cout) out[(long long)m * Cout + n] = acc[i][j];
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + (j / 4) * 64 + tx * 4 + (j % 4);
+      if (n < Cout)
+        out[(long long)m * Cout + n] = total[(i * TN + j) * DW_THREADS + tid] + part[i][j];
     }
   }
 }
 
-// dw[e] = sum over chunks z = 0, 1, ... of ws[z * MN + e], in that order.
+// dw[e] = sum over the pixel chunks of ws, in chunk order
 __global__ void __launch_bounds__(REDUCE_THREADS)
-conv2d_dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                        long long MN, int splits) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < MN;
-       e += stride) {
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += ws[z * MN + e];
-    dw[e] = s;
+conv2d_dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw, long long MN,
+                        int splits) {
+  split_sum<float>(ws, dw, MN, splits);
+}
+
+template <typename T, int NT>
+cudaError_t launch_dw_tile(bool va, bool vb, dim3 grid, cudaStream_t s, const T* x,
+                           const T* g, float* out, int B, int H, int W, int Cin, int Cout,
+                           int KH, int KW, long long chunk) {
+  auto kern = conv2d_dw_kernel<T, NT, false, false>;
+  if constexpr (sizeof(T) == 4) {
+    if (va && vb)
+      kern = conv2d_dw_kernel<T, NT, true, true>;
+    else if (va)
+      kern = conv2d_dw_kernel<T, NT, true, false>;
+    else if (vb)
+      kern = conv2d_dw_kernel<T, NT, false, true>;
   }
+  constexpr int bytes = dw_smem_bytes<NT>();
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  // ask for the shared-memory side of the L1 split, so two blocks fit
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, DW_THREADS, bytes, s>>>(x, g, out, B, H, W, Cin, Cout, KH, KW, chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_dw(const void* x, const void* g, void* dw, void* ws, int B, int H, int W, int Cin,
+              int Cout, int KH, int KW, int bn, int splits, long long chunk, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(g);
+  float* out = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(dw);
+  const long long M = (long long)KH * KW * Cin;
+  const long long grid_m = (M + DW_BM - 1) / DW_BM;
+  const long long grid_n = (Cout + bn - 1) / bn;
+  if (grid_m > 2147483647LL || grid_n > 65535LL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)grid_m, (unsigned)grid_n, (unsigned)splits);
+  // 16-byte copies need 16-byte aligned rows: an aligned base and a row
+  // of a multiple of 4 floats (bf16 is always widened element by element)
+  const bool va = sizeof(T) == 4 && Cin % 4 == 0 && aligned16(x);
+  const bool vb = sizeof(T) == 4 && Cout % 4 == 0 && aligned16(g);
+  cudaError_t err =
+      bn == 64 ? launch_dw_tile<T, 64>(va, vb, grid, s, xp, gp, out, B, H, W, Cin, Cout, KH,
+                                       KW, chunk)
+               : launch_dw_tile<T, 128>(va, vb, grid, s, xp, gp, out, B, H, W, Cin, Cout, KH,
+                                        KW, chunk);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long MN = M * Cout;
+  conv2d_dw_reduce_kernel<<<split_sum_blocks(MN), REDUCE_THREADS, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<float*>(dw), MN, splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -672,46 +743,30 @@ extern "C" int conv2d_dx_launch(const void* g, const void* w, void* dx, void* ws
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x and g share it); dw is float32.
-// The pixel axis is cut into `splits` chunks of `chunk` pixels.  With one
-// chunk the GEMM writes dw directly and ws may be null; otherwise ws holds
-// splits * kh*kw*Cin*Cout floats and a second kernel sums it into dw.
-extern "C" int conv2d_dw_launch(const void* x, const void* g, void* dw,
-                                void* ws, int B, int H, int W, int Cin,
-                                int Cout, int KH, int KW, int splits,
+// The plan (kernels/conv2d.py::dw_plan): bn, the N tile (64 or 128); the
+// pixel axis cut into `splits` chunks of `chunk` pixels.  With one chunk
+// the kernel writes dw directly and ws may be null; otherwise ws holds
+// splits * kh*kw*Cin*Cout floats and a second kernel sums it into dw in a
+// fixed order.  Returns the cudaError_t of the launches (0 on success);
+// the caller raises on non-zero.
+extern "C" int conv2d_dw_launch(const void* x, const void* g, void* dw, void* ws, int B, int H,
+                                int W, int Cin, int Cout, int KH, int KW, int bn, int splits,
                                 long long chunk, int dtype, void* stream) {
   const long long P = (long long)B * H * W;
   const long long M = (long long)KH * KW * Cin;
-  if (P <= 0 || M <= 0 || Cout <= 0 || splits <= 0 || chunk <= 0 ||
-      (long long)(splits - 1) * chunk >= P || (long long)splits * chunk < P ||
+  if (P <= 0 || M <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 || M > 2147483647LL ||
+      (long long)H * W > 2147483647LL || !(bn == 64 || bn == 128) || splits <= 0 ||
+      chunk <= 0 || (long long)(splits - 1) * chunk >= P || (long long)splits * chunk < P ||
       (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long grid_m = (M + BM - 1) / BM;
-  const long long grid_n = (Cout + BN - 1) / BN;
-  if (grid_m > 2147483647LL || grid_n > 65535LL || splits > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)grid_m, (unsigned)grid_n, (unsigned)splits);
+  if (splits > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(dw);
-  if (dtype == 0) {
-    conv2d_dw_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), out, B, H,
-        W, Cin, Cout, KH, KW, chunk);
-  } else if (dtype == 1) {
-    conv2d_dw_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(g), out, B, H, W, Cin, Cout, KH, KW,
-        chunk);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long MN = M * Cout;
-  long long blocks = (MN + REDUCE_THREADS - 1) / REDUCE_THREADS;
-  if (blocks > 4096) blocks = 4096;
-  conv2d_dw_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), MN, splits);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_dw<float>(x, g, dw, ws, B, H, W, Cin, Cout, KH, KW, bn, splits, chunk, s);
+  if (dtype == 1)
+    return launch_dw<__nv_bfloat16>(x, g, dw, ws, B, H, W, Cin, Cout, KH, KW, bn, splits,
+                                    chunk, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* conv2d_bwd_error_string(int code) {

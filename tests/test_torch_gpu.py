@@ -27,7 +27,9 @@ from repro_torch.kernels.conv2d import (
     conv2d,
     conv2d_dw,
     conv2d_dx,
+    dw_plan,
     dx_plan,
+    fwd_plan,
 )
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.ref import (
@@ -184,9 +186,84 @@ def test_dw_kernel_matches_plain_version(dev, b, h, w, cin, cout, k, dtype):
 @pytest.mark.parametrize("shape", [(8, 32, 32, 3, 500, 5), (8, 16, 16, 500, 1500, 5)])
 def test_dw_kernel_reruns_bit_identical(dev, shape):
     """No float atomics: the split-K partial sums reduce in a fixed
-    order, so a rerun gives the same bits (C1 splits the pixel axis)."""
+    order, so a rerun gives the same bits (both shapes split the pixel
+    axis)."""
     tx, _, tg = _bwd_inputs(dev, *shape, torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dw_plan(tx.shape, 5, 5, shape[4], 4, sms).splits > 1
     assert torch.equal(conv2d_dw(tx, tg, 5, 5), conv2d_dw(tx, tg, 5, 5))
+
+
+# the main path's shard shapes of K1 and K3: serving (4 images) and
+# training (8) shards of C2 and C1; Cout 363 is not a multiple of 4, so
+# w and g rows take the 4-byte copies
+MAIN_PATH_SHARDS = [
+    (4, 16, 16, 500, 449, 5), (4, 16, 16, 500, 544, 5), (8, 16, 16, 500, 459, 5),
+    (8, 16, 16, 500, 363, 5), (4, 32, 32, 3, 165, 5), (8, 32, 32, 3, 175, 5),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,h,w,cin,cout,k", MAIN_PATH_SHARDS)
+def test_fwd_and_dw_kernels_on_main_path_shards(dev, b, h, w, cin, cout, k, dtype):
+    tdtype, atol = TOL[dtype]
+    tx, tw, tg = _bwd_inputs(dev, b, h, w, cin, cout, k, tdtype)
+    before = (conv2d.launches, conv2d_dw.launches)
+    y = conv2d(tx, tw)
+    dw = conv2d_dw(tx, tg, k, k)
+    torch.cuda.synchronize()
+    assert (conv2d.launches, conv2d_dw.launches) == tuple(n + 1 for n in before)
+    torch.testing.assert_close(y.float(), conv2d_ref(tx.float(), tw.float()), atol=atol,
+                               rtol=0.05)
+    torch.testing.assert_close(dw, conv2d_dw_ref(tx.float(), tg.float(), k, k), atol=atol,
+                               rtol=0.05)
+
+
+def _offset_view(t, offset):
+    """``t``'s values in a tensor whose storage starts ``offset`` elements
+    into a larger buffer: contiguous, but its base address is not 16-byte
+    aligned for an odd ``offset``."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# K1's and K3's copy paths: rows of a multiple of 4 floats (K3's x and g,
+# K1's w) take 16-byte cp.async copies, others 4-byte ones, and so does a
+# row whose base address is not 16-byte aligned (offset 1); K1 copies x 4
+# bytes at a time into its transposed slab
+@pytest.mark.parametrize("cin,cout", [(8, 24), (8, 21), (6, 24), (6, 21), (12, 132)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fwd_and_dw_kernels_take_every_copy_path(dev, cin, cout, offset):
+    tx, tw, tg = _bwd_inputs(dev, 2, 9, 11, cin, cout, 5, torch.float32)
+    x_, w_, g_ = (_offset_view(t, offset) for t in (tx, tw, tg))
+    assert (x_.data_ptr() % 16 == 0) == (offset == 0)
+    torch.testing.assert_close(conv2d(x_, w_), conv2d_ref(tx, tw), atol=2e-4, rtol=0.05)
+    torch.testing.assert_close(conv2d_dw(x_, g_, 5, 5), conv2d_dw_ref(tx, tg, 5, 5),
+                               atol=2e-4, rtol=0.05)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 16, 500, 449, 5), (8, 16, 16, 500, 459, 5)])
+def test_fwd_kernel_splits_the_taps_and_reruns_bit_identical(dev, shape):
+    """The serving and training C2 shards split K1's taps; the splits
+    reduce in a fixed order, so a rerun gives the same bits."""
+    tx, tw, _ = _bwd_inputs(dev, *shape, torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fwd_plan(tx.shape, 5, 5, shape[4], 4, sms).splits > 1
+    y = conv2d(tx, tw)
+    assert torch.equal(y, conv2d(tx, tw))
+    torch.testing.assert_close(y, conv2d_ref(tx, tw), atol=2e-4, rtol=0.05)
+
+
+def test_kernel_takes_a_weight_shard_of_the_c2_layer(dev):
+    """A shard sliced from the full C2 weight on its last axis, as the
+    kernel-axis partition hands it to a device (Cout 449)."""
+    tx, tw, _ = _bwd_inputs(dev, 4, 16, 16, 500, 1500, 5, torch.float32)
+    shard = tw[..., 100:549]
+    assert not shard.is_contiguous()
+    torch.testing.assert_close(conv2d(tx, shard), conv2d_ref(tx, shard), atol=2e-4,
+                               rtol=0.05)
 
 
 # K2's variants: Cin on both sides of the small-Cin boundary (16), and a

@@ -27,7 +27,14 @@ from repro.core.cluster.protocol import conv_shard as jax_conv_shard
 from repro.kernels.conv2d import conv2d_dw_pallas, conv2d_dx_pallas, conv2d_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import conv2d as conv2d_module
-from repro_torch.kernels.conv2d import conv2d, conv2d_dw, conv2d_dx, dw_split, dx_plan
+from repro_torch.kernels.conv2d import (
+    conv2d,
+    conv2d_dw,
+    conv2d_dx,
+    dw_plan,
+    dx_plan,
+    fwd_plan,
+)
 from repro_torch.kernels.ref import (
     conv2d_dw_ref,
     conv2d_dx_ref,
@@ -139,20 +146,124 @@ def test_bwd_wrappers_on_cpu_are_the_plain_versions(b, h, w, cin, cout, k):
         assert dw.shape == (k, k, cin, cout) and dw.numel() > 0
 
 
-@pytest.mark.parametrize("x_shape,cout,splits", [
-    ((32, 32, 32, 3), 500, 17),     # C1: 16 output tiles, so the pixels split
-    ((8, 16, 16, 500), 1500, 1),    # C2: 4,704 tiles fill the card alone
-    ((1, 1, 8, 4), 8, 1),           # fewer pixels than one chunk
-    ((8, 7, 16, 500), 437, 1),
-])
-def test_dw_split_covers_the_pixels_once(x_shape, cout, splits):
-    """K3's pixel chunks: whole 16-pixel slabs, none empty, covering
-    B*H*W exactly once, enough for two blocks per SM of 132."""
-    got, chunk = dw_split(x_shape, 5, 5, cout, 132)
+# K3's and K1's plans: the test sweep, C1 and C2 at batch 32 and 4
+# (chip_smoke.py's kernel phases), the serving and training paths' C1
+# and C2 shards (Cout 363 and 459 are not multiples of 4), a 7-row strip
+# and fewer pixels than one chunk, in both dtypes
+CONV_PLAN_CASES = [
+    ((b, h, w, cin), k, cout, itemsize)
+    for (b, h, w, cin, cout, k) in [s for s in SHAPES if s[4]] + [
+        (32, 32, 32, 3, 500, 5), (32, 16, 16, 500, 1500, 5),
+        (4, 32, 32, 3, 500, 5), (4, 16, 16, 500, 1500, 5),
+        (4, 32, 32, 3, 165, 5), (4, 16, 16, 500, 449, 5),
+        (8, 32, 32, 3, 175, 5), (8, 16, 16, 500, 459, 5), (8, 16, 16, 500, 363, 5),
+        (8, 7, 16, 500, 437, 5), (1, 1, 8, 4, 8, 5), (1, 4, 4, 40, 1500, 5),
+    ]
+    for itemsize in (4, 2)
+]
+
+
+@pytest.mark.parametrize("x_shape,k,cout,itemsize", CONV_PLAN_CASES)
+def test_dw_plan_chunks_cover_every_pixel_once(x_shape, k, cout, itemsize):
+    """K3's pixel chunks: whole 8-pixel slabs, none empty, covering B*H*W
+    exactly once, at least 32 slabs long where there are that many; a
+    split only where it lowers the cost of (waves of blocks over the
+    card's block slots) x (slabs per chunk)."""
+    plan = dw_plan(x_shape, k, k, cout, itemsize, 132)
     pixels = x_shape[0] * x_shape[1] * x_shape[2]
-    assert got == splits and chunk % 16 == 0
-    assert (got - 1) * chunk < pixels <= got * chunk
-    assert dw_split(x_shape, 5, 5, cout, 132) == (got, chunk)
+    assert plan.chunk % 8 == 0 and plan.bn == (64 if cout <= 64 else 128)
+    assert (plan.splits - 1) * plan.chunk < pixels <= plan.splits * plan.chunk
+    if plan.splits > 1:
+        assert plan.chunk >= 8 * conv2d_module._DW_MIN_CHUNK_SLABS
+    slots = conv2d_module._TILED_BLOCKS_PER_SM * 132
+    slabs = -(-pixels // 8)
+
+    def cost(splits):
+        return -(-plan.tiles * splits // slots) * -(-slabs // splits)
+
+    assert cost(plan.splits) <= cost(1)
+    if plan.splits > 1:
+        assert cost(plan.splits) < cost(1)
+
+
+@pytest.mark.parametrize("x_shape,k,cout,itemsize", CONV_PLAN_CASES)
+def test_dw_plan_workspace_stays_within_its_cap(x_shape, k, cout, itemsize):
+    """K3's fp32 workspace is at most twice the bytes of x and g (in
+    their dtype) and dW together."""
+    plan = dw_plan(x_shape, k, k, cout, itemsize, 132)
+    b, h, w, cin = x_shape
+    dw_bytes = 4 * k * k * cin * cout
+    ws_bytes = dw_bytes * plan.splits if plan.splits > 1 else 0
+    assert ws_bytes <= 2 * (itemsize * b * h * w * (cin + cout) + dw_bytes)
+
+
+def test_dw_plan_is_a_function_of_the_shapes():
+    """The same shapes give the same plan (a rerun sums in the same
+    order).  Pinned: the training path's C1 shards (1 or 2 tiles) split
+    into 32 chunks of 256 pixels, its C2 shards (392 tiles, 1.5 waves)
+    into 2 of 1,024; C1 at batch 32 (4 tiles) into 66 of 504, C2 at
+    batch 32 (1,176 tiles, 4.5 waves) into 2 of 4,096."""
+    for x_shape, k, cout, itemsize in CONV_PLAN_CASES:
+        assert dw_plan(x_shape, k, k, cout, itemsize, 132) == dw_plan(
+            tuple(x_shape), k, k, cout, itemsize, 132)
+    assert dw_plan((8, 32, 32, 3), 5, 5, 175, 4, 132) == (128, 2, 32, 256)
+    assert dw_plan((8, 32, 32, 3), 5, 5, 107, 4, 132) == (128, 1, 32, 256)
+    assert dw_plan((8, 16, 16, 500), 5, 5, 459, 4, 132) == (128, 392, 2, 1024)
+    assert dw_plan((32, 32, 32, 3), 5, 5, 500, 4, 132) == (128, 4, 66, 504)
+    assert dw_plan((32, 16, 16, 500), 5, 5, 1500, 4, 132) == (128, 1176, 2, 4096)
+
+
+@pytest.mark.parametrize("x_shape,k,cout,itemsize", CONV_PLAN_CASES)
+def test_fwd_plan_splits_cover_every_tap_once(x_shape, k, cout, itemsize):
+    """K1's split of the K axis: runs of whole taps, none empty, that
+    cover the kh*kw taps exactly once, at most one split per 256
+    products; a split only where it lowers the cost of (waves of blocks
+    over the card's block slots) x (taps per split)."""
+    plan = fwd_plan(x_shape, k, k, cout, itemsize, 132)
+    taps, cin = k * k, x_shape[3]
+    covered = [t for z in range(plan.splits)
+               for t in range(z * plan.taps_per_split,
+                              min((z + 1) * plan.taps_per_split, taps))]
+    assert covered == list(range(taps))
+    assert (plan.splits - 1) * plan.taps_per_split < taps
+    assert plan.bn in (64, 128) and (cout > 64 or plan.bn == 64)
+    if plan.splits > 1:
+        assert plan.splits * conv2d_module._FWD_MIN_SPLIT_K <= taps * cin
+        assert plan.bn == 128 or cout <= 64
+    slots = conv2d_module._TILED_BLOCKS_PER_SM * 132
+
+    def cost(splits):
+        return -(-plan.tiles * splits // slots) * -(-taps // splits)
+
+    assert cost(plan.splits) <= cost(1)
+    if plan.splits > 1:
+        assert cost(plan.splits) < cost(1)
+
+
+@pytest.mark.parametrize("x_shape,k,cout,itemsize", CONV_PLAN_CASES)
+def test_fwd_plan_workspace_stays_within_its_cap(x_shape, k, cout, itemsize):
+    """K1's fp32 split workspace is at most 8x y's bytes in x's dtype."""
+    plan = fwd_plan(x_shape, k, k, cout, itemsize, 132)
+    y_elems = x_shape[0] * x_shape[1] * x_shape[2] * cout
+    ws_bytes = 4 * y_elems * plan.splits if plan.splits > 1 else 0
+    assert ws_bytes <= 8 * y_elems * itemsize
+
+
+def test_fwd_plan_is_a_function_of_the_shapes():
+    """The same shapes give the same plan.  Pinned: a serving C2 shard
+    (1,024 pixels: 32 tiles on 264 block slots) splits into 7 runs of 4
+    taps, a training C2 shard (64 tiles) into 4 of 7; C1 (K = 75) never
+    splits, and takes 64-wide tiles on a serving or training shard (256
+    or 192 blocks, not 128) but not at batch 32 (1,024 tiles of 128
+    already make 4 waves)."""
+    for x_shape, k, cout, itemsize in CONV_PLAN_CASES:
+        assert fwd_plan(x_shape, k, k, cout, itemsize, 132) == fwd_plan(
+            tuple(x_shape), k, k, cout, itemsize, 132)
+    assert fwd_plan((4, 16, 16, 500), 5, 5, 449, 4, 132) == (128, 32, 7, 4)
+    assert fwd_plan((8, 16, 16, 500), 5, 5, 459, 4, 132) == (128, 64, 4, 7)
+    assert fwd_plan((4, 32, 32, 3), 5, 5, 500, 4, 132) == (64, 256, 1, 25)
+    assert fwd_plan((8, 32, 32, 3), 5, 5, 159, 4, 132) == (64, 192, 1, 25)
+    assert fwd_plan((32, 32, 32, 3), 5, 5, 500, 4, 132) == (128, 1024, 1, 25)
 
 
 # K2's plans: the test sweep, C1 and C2 at batch 32 (chip_smoke.py's
