@@ -9,7 +9,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 2. build  — ``nvcc`` builds every kernel library of the port from
    ``src/repro_torch/kernels/csrc/``, all sources at once (seconds, cache
    hit, and ptxas's registers, spills and shared memory for each kernel
-   by name); a spill in K1's or K3's kernel fails the run;
+   by name); a spill in K1's, K2's or K3's kernels fails the run;
 3. kernel — the forward conv K1 against its plain PyTorch version
    (``conv2d_ref``) on the card, on the shapes of tests/test_kernels.py,
    the paper's C1 and C2 layers, a ragged and an empty Cout, a Cout that
@@ -58,10 +58,17 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    kernel's scalar-load path); with median times of the
    kernel, the plain version and ``F.scaled_dot_product_attention`` on
    the same boolean mask (a yardstick the port never calls);
-11. kernel_ssd — the SSD scan K5 against ``ssd_chunked_ref`` in float64,
-   y and the final state: the test sweep, hymba's shape (B 4, S 2048,
-   H 50, P 64, N 16, chunk 256), a ragged S = 2000 and S shorter than
-   one chunk (no single PyTorch call computes SSD: no yardstick);
+11. kernel_ssd — the SSD scan K5 (three kernels: ``ssd_fwd_kernel``,
+   each 64-step tile's local state; ``ssd_prefix_kernel``, the state
+   entering each tile; ``ssd_out_kernel``, y) against
+   ``ssd_chunked_ref`` in float64, y and the final state: the test
+   sweep, hymba's shape (B 4, S 2048, H 50, P 64, N 16, chunk 256) in
+   fp32 and bf16, a ragged S = 2000, S shorter than one chunk, G = H and
+   P = 20; x, B and C read through the row stride of the model's
+   in-projection, 16-byte aligned and not; hymba's shape rerun 20 times,
+   the same bits, and its tile passes' launch grids from a profiler
+   trace, each more blocks than B * H (no single PyTorch call computes
+   SSD: no yardstick);
 12. lm_serve — the port's ``launch/serve.py`` path (``load`` +
    ``ServeEngine.generate``) on ``hymba-1.5b --full`` in its own bf16:
    batch 4, prompt 2048, 16 new tokens, greedy, inside a profiler trace.
@@ -126,19 +133,22 @@ SEED = 0
 # lm_check: the kernel path's logits against the plain path's, max |diff|
 # over max |logit| (fp32 throughout; see PERF.md for the choice)
 LM_RTOL = 1e-3
+# K5 reruns at hymba's prefill shape, each held bit-identical to the first
+SSD_RERUNS = 20
 # the wrappers' kernels by trace symbol: the first counts launches (K2's
 # two variants share it), all of them count time (K1 and K2 reduce their
-# tap splits and K3 its pixel chunks in a second kernel)
+# tap splits and K3 its pixel chunks in a second kernel; K5 folds its
+# tiles' states and writes y in a second and third)
 SYMBOLS = {
     "conv2d_fwd": ("conv2d_fwd_kernel", "conv2d_fwd_reduce_kernel"),
     "conv2d_dx": ("conv2d_dx_kernel", "conv2d_dx_reduce_kernel"),
     "conv2d_dw": ("conv2d_dw_kernel", "conv2d_dw_reduce_kernel"),
     "flash_attention": ("flash_attn_fwd_kernel",),
-    "ssd": ("ssd_fwd_kernel",),
+    "ssd": ("ssd_fwd_kernel", "ssd_prefix_kernel", "ssd_out_kernel"),
 }
 CONV_KINDS = ("conv2d_fwd", "conv2d_dx", "conv2d_dw")
 # kernels that must build without spills (ptxas's report)
-NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dw_kernel")
+NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dx_kernel", "conv2d_dw_kernel")
 
 
 def emit(obj: dict) -> None:
@@ -248,6 +258,33 @@ def device_trace(prof, window_s: float) -> dict:
             "busy_share": busy_us / 1e6 / window_s}
 
 
+def traced_grids(fn, names, calls: int = 3) -> dict:
+    """The launch grid of each kernel of ``names`` that ``fn`` runs on
+    the card, from the profiler's trace (written under the gitignored
+    build/) of ``calls`` calls: a trace that follows another in the same
+    process can lose its first kernel records.  Fails where a kernel is
+    not in the trace or its grids differ."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "chip_smoke_grid_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    path.unlink()
+    grids = {}
+    for name in names:
+        found = {tuple(e["args"].get("grid") or ()) for e in events if name in e["name"]}
+        if len(found) != 1 or not all(next(iter(found))):
+            fail(f"traced_grids: {name}'s grids in the trace of {calls} calls: {found}")
+        grids[name] = list(next(iter(found)))
+    return grids
+
+
 def nchw(t):
     return t.permute(0, 3, 1, 2).contiguous()
 
@@ -282,13 +319,14 @@ class Kernels:
         )
         from repro_torch.kernels.flash_attn import flash_attention
         from repro_torch.kernels.ref import conv2d_dw_ref, conv2d_dx_ref, conv2d_ref
-        from repro_torch.kernels.ssd import ssd
+        from repro_torch.kernels.ssd import ssd, ssd_plan
 
         self.wrapper = {"conv2d_fwd": conv2d, "conv2d_dx": conv2d_dx,
                         "conv2d_dw": conv2d_dw, "flash_attention": flash_attention,
                         "ssd": ssd}
         self.conv2d_ref = conv2d_ref
-        self.plans = {"conv2d_fwd": fwd_plan, "conv2d_dx": dx_plan, "conv2d_dw": dw_plan}
+        self.plans = {"conv2d_fwd": fwd_plan, "conv2d_dx": dx_plan, "conv2d_dw": dw_plan,
+                      "ssd": ssd_plan}
         self.calls = {  # (kernel, plain version)
             "conv2d_fwd": (lambda x, w, g: conv2d(x, w),
                            lambda x, w, g: conv2d_ref(x, w)),
@@ -538,17 +576,20 @@ def attn_work(b, h, kv, s, t, d, causal, window, dtype):
     return flops, nbytes
 
 
-def ssd_work(b, s, h, g, p, n, chunk, dtype):
-    """(operations, bytes) of one SSD scan: per chunk of Lv steps, the
-    causal triangle's Lv(Lv+1)/2 pairs each cost 2(N + P) (scores and
-    scores x dt*x), the inter-chunk term and the state update 2*Lv*P*N
-    each; x, B, C in the input dtype, dt and a float32 read once, y and
-    the fp32 state written once."""
+def ssd_work(b, s, h, g, p, n, chunk, dtype, tile=64):
+    """(operations, bytes) of one SSD scan cut into chunks and, inside
+    each, into tiles of ``tile`` steps (the kernel's 64; ``tile=chunk``
+    gives the whole-chunk formulation earlier rows were bounded by): per
+    tile of Lv steps, the causal triangle's Lv(Lv+1)/2 pairs each cost
+    2(N + P) (scores and scores x dt*x), the state and the inter term
+    2*Lv*P*N each; x, B, C in the input dtype, dt and a float32 read once,
+    y and the fp32 state written once."""
     chunk = min(chunk, s)
     flops = 0.0
-    for t0 in range(0, s, chunk):
-        lv = min(chunk, s - t0)
-        flops += 2.0 * lv * (lv + 1) / 2 * (n + p) + 4.0 * lv * p * n
+    for c0 in range(0, s, chunk):
+        for t0 in range(c0, min(c0 + chunk, s), tile):
+            lv = min(tile, c0 + chunk - t0, s - t0)
+            flops += 2.0 * lv * (lv + 1) / 2 * (n + p) + 4.0 * lv * p * n
     flops *= b * h
     nbytes = (itemsize(dtype) * (2 * b * s * h * p + 2 * b * s * g * n)
               + 4 * (b * s * h + h + b * h * p * n))
@@ -616,12 +657,14 @@ def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phas
     }
 
 
-def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase):
+def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase, width=None):
     """K5 against its plain version in float64 on one shape, y and the
     fp32 final state at 10x the fp32 kernel sweep's atol
     (tests/test_kernels.py's SSD rule), a bf16 y against the reference
     rounded to bf16 at that atol and ``BF16_OUT_TOL``'s rtol; fail on a
-    mismatch.  Returns the shape's record."""
+    mismatch.  With ``width``, x, B and C are views of one (B, S, width)
+    buffer, as the model slices them from its in-projection (x first,
+    then B, then C).  Returns the shape's record."""
     from repro_torch.kernels.ref import ssd_chunked_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + s + h + p + n)
@@ -630,6 +673,15 @@ def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase):
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
     bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
               for _ in range(2))
+    if width is not None:
+        buf = torch.zeros((b, s, width), dtype=dtype, device=dev)
+        col, views = 0, []
+        for t in (x, bm, cm):
+            sl = buf[:, :, col : col + t.shape[2] * t.shape[3]]
+            sl.copy_(t.reshape(b, s, -1))
+            views.append(sl.view(t.shape))
+            col += t.shape[2] * t.shape[3]
+        x, bm, cm = views
     fn = ks.wrapper["ssd"]
     y, state = fn(x, dt, a, bm, cm, chunk=chunk)
     torch.cuda.synchronize()
@@ -647,24 +699,33 @@ def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase):
         y_want, y_rtol = y_want.to(dtype).double(), BF16_OUT_TOL[1]
     err = (y.double() - y_want).abs().max().item()
     s_err = (state.double() - s_want).abs().max().item()
+    y_max = y_want.abs().max().item()  # a bf16 step is 2**(floor(log2 |y|) - 7)
     if not (torch.allclose(y.double(), y_want, atol=atol, rtol=y_rtol)
             and torch.allclose(state.double(), s_want, atol=atol, rtol=rtol)):
         fail(f"ssd {label}: kernel vs its plain version max abs err y {err} state "
              f"{s_err} beyond atol {atol} rtol {y_rtol} (y) {rtol} (state)")
     flops, nbytes = ssd_work(b, s, h, g, p, n, chunk, dtype)
     bound_ms, bound_by = bound(flops, nbytes, dtype)
+    chunk_flops = ssd_work(b, s, h, g, p, n, chunk, dtype, tile=min(chunk, s))[0]
     reps = reps_for(flops)
     return {
         "phase": phase, "kernel": "ssd", "case": label,
+        "plan": ks.plans["ssd"](b, s, h, p, n, chunk)._asdict(),
         "dtype": str(dtype).split(".")[-1],
         "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk},
+        "row_stride": x.stride(1),
         "max_abs_err": max(err, s_err), "max_abs_err_y": err, "max_abs_err_state": s_err,
+        "max_abs_y": y_max,
         "atol": atol, "rtol": rtol, "rtol_y": y_rtol,
         "ms": events_ms(lambda: fn(x, dt, a, bm, cm, chunk=chunk), reps),
         "plain_ms": events_ms(lambda: ssd_chunked_ref(x, dt, a, bm, cm, min(chunk, s)),
                               reps),
         "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        # the whole-chunk formulation's operations over the fp32 peak: the
+        # bound that earlier records of this kernel give
+        "chunk_flops": chunk_flops,
+        "bound_ms_chunk_ops": chunk_flops / PEAK_FLOPS[torch.float32] * 1e3,
     }
 
 
@@ -1020,6 +1081,49 @@ def main() -> int:
                       ("S 100, shorter than a chunk", 100)):
         emit(check_ssd(ks, dev, 4, s_, 50, 1, 64, 16, 256, torch.float32,
                        label=label, phase="kernel_ssd"))
+    emit(check_ssd(ks, dev, 4, 2048, 50, 1, 64, 16, 256, torch.bfloat16,
+                   label="hymba prefill", phase="kernel_ssd"))
+    emit(check_ssd(ks, dev, 2, 700, 6, 6, 64, 16, 256, torch.float32,
+                   label="G = H, ragged", phase="kernel_ssd"))
+    emit(check_ssd(ks, dev, 2, 600, 4, 2, 20, 16, 256, torch.float32,
+                   label="P 20", phase="kernel_ssd"))
+    # the in-projection's row stride: 16-byte copies, then the 4-byte ones
+    for label, width in (("projection rows", 3232), ("projection rows, odd stride", 3233)):
+        emit(check_ssd(ks, dev, 4, 2048, 50, 1, 64, 16, 256, torch.float32,
+                       label=label, phase="kernel_ssd", width=width))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ssd_args = (torch.randn((4, 2048, 50, 64), generator=gen, device=dev),
+                torch.nn.functional.softplus(
+                    torch.randn((4, 2048, 50), generator=gen, device=dev)),
+                -torch.exp(torch.randn((50,), generator=gen, device=dev) * 0.5),
+                torch.randn((4, 2048, 1, 16), generator=gen, device=dev),
+                torch.randn((4, 2048, 1, 16), generator=gen, device=dev))
+    y1, s1 = ks.wrapper["ssd"](*ssd_args, chunk=256)
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    y_want, s_want = ssd_chunked_ref(*(t.double() for t in ssd_args), 256)
+    atol, rtol = 10 * TOL[torch.float32][0], TOL[torch.float32][1]
+    first_err = max((y1.double() - y_want).abs().max().item(),
+                    (s1.double() - s_want).abs().max().item())
+    if not (torch.allclose(y1.double(), y_want, atol=atol, rtol=rtol)
+            and torch.allclose(s1.double(), s_want, atol=atol, rtol=rtol)):
+        fail(f"kernel_ssd: K5 at hymba's prefill shape disagrees with its plain version "
+             f"(max abs err {first_err})")
+    del y_want, s_want
+    grids = traced_grids(lambda: ks.wrapper["ssd"](*ssd_args, chunk=256),
+                         ("ssd_fwd_kernel", "ssd_out_kernel"))
+    for _ in range(SSD_RERUNS):
+        y2, s2 = ks.wrapper["ssd"](*ssd_args, chunk=256)
+        if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
+            fail("kernel_ssd: K5 reruns at hymba's prefill shape gave different bits")
+    # chunk-parallel: the tile passes run more blocks at once than the one
+    # block per (batch, head) of a scan that walks the chunks in order
+    if not all(g[0] > 4 * 50 for g in grids.values()):
+        fail(f"kernel_ssd: K5's tile passes launched {grids}, not more than B*H = 200 blocks")
+    emit({"phase": "kernel_ssd", "case": "K5 rerun on hymba prefill", "bit_identical": True,
+          "reruns": SSD_RERUNS, "max_abs_err": first_err, "grids": grids,
+          "blocks_per_head_scan": 4 * 50})
+    del ssd_args, y1, y2, s1, s2
 
     # -- 12. serve hymba-1.5b at full width through the port -----------------
     from repro_torch.launch.serve import load

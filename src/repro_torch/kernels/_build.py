@@ -81,11 +81,11 @@ _SIGNATURES = {
     },
     "ssd_fwd": {
         "ssd_fwd_launch": (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 12
             + [ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
-        "ssd_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        "ssd_fwd_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong),
         "ssd_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }

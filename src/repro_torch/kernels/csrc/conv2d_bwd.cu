@@ -22,9 +22,13 @@
 // TF32), so the 67 TFLOP/s fp32 rate.  The design feeds the FMA pipes:
 // - Tiled variant (Cin > 16): 128 x 128 tiles (128 x 64 for Cin <= 64),
 //   each of 256 threads an 8 x 8 patch read as float4s (64 FMAs per 16
-//   shared loads); the K loop runs tap-major with 8-deep Cout slabs; the
-//   next slab is gathered into registers during the math and stored into
-//   a double-buffered shared tile, one barrier per slab; each thread sums
+//   shared loads); the K loop runs tap-major with 8-deep Cout slabs,
+//   staged through K1/K3's 3-stage cp.async ring, one barrier per slab.
+//   Both operands are contiguous along K (g's and w's output channel)
+//   and the math reads them product-major, so both are copied 4 bytes at
+//   a time (as K1 copies x), the zero-fill form for padded taps and
+//   ragged edges: no slab passes through registers (a register prefetch
+//   spilled at 128 registers); each thread sums
 //   DX_FOLD slabs (256 terms) in registers before folding them into its
 //   running total, a two-level fp32 sum for reductions up to 37,500
 //   terms; the totals live in shared memory, so two blocks fit an SM.
@@ -95,112 +99,96 @@ namespace {
 
 constexpr int DX_BM = 128;     // tiled variant: pixels per block
 constexpr int DX_BK = 8;       // tiled variant: output channels per slab
+constexpr int DX_STAGES = 3;   // tiled variant: slabs in the cp.async ring
 constexpr int DX_THREADS = 256;
 constexpr int DX_FOLD = 32;    // slabs (256 terms) summed in a partial before folding
 constexpr int SC_CO = 4;       // small-Cin variant: output channels per thread per slab
 constexpr int SC_TAPS = 25;    // small-Cin variant: taps of w staged in shared memory at once
 
-// Whether tap (i, j) of output pixel m = (b, oh, ow) reads g inside the
-// image.  Where it does, g[b, oh + i - qh, ow + j - qw, :] lies at flat
-// pixel m + (i - qh) * W + (j - qw): a tap is one shift of the flat pixel
-// index, and only this pad test is per pixel.
-__device__ __forceinline__ bool tap_ok(int oh, int ow, int di, int dj, int qh, int qw,
-                                       int H, int W) {
-  return (unsigned)(oh + di - qh) < (unsigned)H && (unsigned)(ow + dj - qw) < (unsigned)W;
-}
-
 // Tiled variant (Cin > 16): a DX_BM x NT tile of dX per block, 256
 // threads as 16 x 16, each an 8 x (NT / 16) patch read from shared
 // memory as float4s.  The K loop runs tap-major, taps [t0, t1) of this
 // split (blockIdx.z) outer and Cout in 8-deep slabs inner: the pad test
-// and the pixel shift are computed once per tap.  The next slab is
-// gathered into registers while the current one is multiplied, then
-// stored into the other half of a double-buffered shared tile: one
-// barrier per slab.  Each thread sums DX_FOLD slabs in registers and
-// folds them into its total in shared memory.  Writes dX in T (one split)
-// or its fp32 slice of the workspace.
+// and the pixel shift are computed once per tap.  Slabs go through a
+// DX_STAGES ring in shared memory, filled by cp.async (4-byte copies:
+// both operands are contiguous along K, the output channel, and the
+// math reads them product-major), the zero-fill form for padded taps and
+// ragged edges; the copy of slab s + 2 is issued right after the one
+// barrier of slab s.  Each thread sums DX_FOLD slabs in registers and
+// folds them into its total in shared memory.  Writes dX in T (one
+// split) or its fp32 slice of the workspace.  Two blocks an SM in fp32
+// (128 registers); bf16's loads are widened in registers, so bf16 (off
+// the main path) runs one block an SM, as K1's does.
 template <typename T, int NT>
-__global__ void __launch_bounds__(DX_THREADS, 2)
+__global__ void __launch_bounds__(DX_THREADS, sizeof(T) == 4 ? 2 : 1)
 conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
                  float* __restrict__ ws, int B, int H, int W, int Cin, int Cout, int KH,
                  int KW, int taps_per_split) {
   constexpr int TN = NT / 16;      // columns per thread
-  constexpr int BR = NT / 32;      // B-slab columns loaded per thread
-  constexpr int LDA = DX_BM + 4;   // row pads: the transposed stores spread banks
+  constexpr int BR = NT / 32;      // B-slab columns copied per thread
+  constexpr int LDA = DX_BM + 4;   // row pads: the transposing copies spread banks
   constexpr int LDB = NT + 4;
-  __shared__ __align__(16) float As[2][DX_BK][LDA];
-  __shared__ __align__(16) float Bs[2][DX_BK][LDB];
+  __shared__ __align__(16) float As[DX_STAGES][DX_BK][LDA];  // As[channel][pixel]
+  __shared__ __align__(16) float Bs[DX_STAGES][DX_BK][LDB];  // Bs[channel][ci]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int HW = H * W;
-  const long long M = (long long)B * HW;
-  const long long m0 = (long long)blockIdx.x * DX_BM;
+  const int M = B * HW;
+  const int m0 = blockIdx.x * DX_BM;
   const int n0 = blockIdx.y * NT;
   const int t0 = blockIdx.z * taps_per_split;
   const int t1 = min(t0 + taps_per_split, KH * KW);
   const int qh = KH - 1 - KH / 2;  // the complementary pad
   const int qw = KW - 1 - KW / 2;
+  const int n_slabs = (t1 - t0) * ((Cout + DX_BK - 1) / DX_BK);
 
-  // A-slab loader: 8 adjacent threads walk 8 adjacent output channels
-  // (adjacent addresses of NHWC g) for 4 pixels each
+  // A copier: 8 adjacent threads copy 8 adjacent output channels
+  // (adjacent addresses of NHWC g) of pixels a_m + 32 r; each pixel is
+  // decoded once, one out of range gets a row no tap reaches, so the pad
+  // test masks it too
   const int a_k = tid % DX_BK;
-  const int a_row = tid / DX_BK;  // 0..31; pixels a_row + 32 r
-  const T* a_ptr[4];
+  const int a_m = m0 + tid / DX_BK;
   int a_oh[4], a_ow[4];
-  bool a_in[4], a_ok[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const long long m = m0 + a_row + 32 * r;
-    a_in[r] = m < M;
-    const int rem = a_in[r] ? (int)(m % HW) : 0;
-    a_oh[r] = rem / W;
-    a_ow[r] = rem - a_oh[r] * W;
-    a_ptr[r] = g + (a_in[r] ? m : 0) * Cout + a_k;
+    const int m = a_m + 32 * r;
+    const int rem = m % HW;
+    a_oh[r] = m < M ? rem / W : -(1 << 20);
+    a_ow[r] = rem % W;
   }
-  // B-slab loader: 8 adjacent threads walk co (the contiguous HWIO axis)
-  // for BR input channels each; stored transposed
-  const int b_k = tid % DX_BK;
-  const int b_n = tid / DX_BK;  // 0..31; columns b_n + 32 r
+  // B copier: 8 adjacent threads copy 8 adjacent co (the contiguous HWIO
+  // axis) of input channels b_n + 32 r
+  const int b_n = tid / DX_BK;
 
-  // the slab being loaded: tap lt, channels [lco, lco + 8)
-  int lt = t0, lco = 0;
-  long long tap_off = 0;  // g offset of the tap's pixel shift
-  const T* w_tap = w;     // w[kh-1-i, kw-1-j, :, :]
-  auto set_tap = [&](int tap) {
-    const int di = tap / KW;
-    const int dj = tap - di * KW;
-    tap_off = ((long long)(di - qh) * W + (dj - qw)) * Cout;
-    w_tap = w + (long long)((KH - 1 - di) * KW + (KW - 1 - dj)) * Cin * Cout;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a_ok[r] = a_in[r] && tap_ok(a_oh[r], a_ow[r], di, dj, qh, qw, H, W);
-  };
-  float a_reg[4], b_reg[BR];
-  auto load_slab = [&]() {
+  // the slab being copied: tap (di, dj), channels [lco, lco + 8)
+  int di = t0 / KW, dj = t0 - (t0 / KW) * KW, lco = 0;
+  auto load_slab = [&](int st) {
+    const int sh = (di - qh) * W + (dj - qw);  // the tap's pixel shift
     const bool ka = lco + a_k < Cout;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a_reg[r] = (ka && a_ok[r]) ? to_f32(a_ptr[r][tap_off + lco]) : 0.0f;
-    const int cob = lco + b_k;
+    for (int r = 0; r < 4; ++r) {
+      const bool ok = ka && (unsigned)(a_oh[r] + di - qh) < (unsigned)H &&
+                      (unsigned)(a_ow[r] + dj - qw) < (unsigned)W;
+      copy1(&As[st][a_k][tid / DX_BK + 32 * r],
+            ok ? g + (long long)(a_m + 32 * r + sh) * Cout + lco + a_k : g, ok);
+    }
+    // w[kh-1-di, kw-1-dj, n, lco + a_k]
+    const T* w_row = w + ((long long)((KH - 1 - di) * KW + (KW - 1 - dj)) * Cin + n0 + b_n) *
+                             Cout + lco + a_k;
 #pragma unroll
     for (int r = 0; r < BR; ++r) {
-      const int n = n0 + b_n + 32 * r;
-      b_reg[r] = (cob < Cout && n < Cin) ? to_f32(w_tap[(long long)n * Cout + cob]) : 0.0f;
+      const bool ok = ka && n0 + b_n + 32 * r < Cin;
+      copy1(&Bs[st][a_k][b_n + 32 * r], ok ? w_row + (long long)32 * r * Cout : w, ok);
     }
-  };
-  auto store_slab = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) As[buf][a_k][a_row + 32 * r] = a_reg[r];
-#pragma unroll
-    for (int r = 0; r < BR; ++r) Bs[buf][b_k][b_n + 32 * r] = b_reg[r];
-  };
-  auto advance = [&]() {
     lco += DX_BK;
     if (lco >= Cout) {
       lco = 0;
-      if (++lt < t1) set_tap(lt);
+      if (++dj == KW) {
+        dj = 0;
+        ++di;
+      }
     }
   };
 
@@ -217,27 +205,28 @@ conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict
       total[(i * TN + j) * DX_THREADS + tid] = 0.0f;
     }
 
-  const int n_slabs = (t1 - t0) * ((Cout + DX_BK - 1) / DX_BK);
-  set_tap(lt);
-  load_slab();
-  store_slab(0);
-  advance();
-  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < DX_STAGES - 1; ++s) {
+    if (s < n_slabs) load_slab(s);
+    cp_async_commit();
+  }
+  int st = 0;  // the stage of slab sl
   int folded = 0;
   for (int sl = 0; sl < n_slabs; ++sl) {
-    const int cur = sl & 1;
-    const bool more = sl + 1 < n_slabs;
-    if (more) load_slab();  // global gathers in flight during the math
+    cp_async_wait<DX_STAGES - 2>();  // slab sl has landed (this thread's copies)
+    __syncthreads();                 // ... everyone's; and slab sl - 1 is read
+    if (sl + DX_STAGES - 1 < n_slabs) load_slab(st == 0 ? DX_STAGES - 1 : st - 1);
+    cp_async_commit();
 #pragma unroll
     for (int kk = 0; kk < DX_BK; ++kk) {
       float a[8], bv[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
       a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
       a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
 #pragma unroll
       for (int jj = 0; jj < TN / 4; ++jj) {
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 * jj + tx * 4]);
+        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[st][kk][64 * jj + tx * 4]);
         bv[4 * jj] = b4.x; bv[4 * jj + 1] = b4.y; bv[4 * jj + 2] = b4.z; bv[4 * jj + 3] = b4.w;
       }
 #pragma unroll
@@ -245,11 +234,7 @@ conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict
 #pragma unroll
         for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], bv[j], part[i][j]);
     }
-    if (more) {
-      store_slab(cur ^ 1);
-      advance();
-    }
-    __syncthreads();
+    st = st == DX_STAGES - 1 ? 0 : st + 1;
     if (++folded == DX_FOLD) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -265,17 +250,18 @@ conv2d_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict
   float* wsp = ws ? ws + (long long)blockIdx.z * M * Cin : nullptr;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
+    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + (j / 4) * 64 + tx * 4 + (j % 4);
       if (n >= Cin) continue;
       const float val = total[(i * TN + j) * DX_THREADS + tid] + part[i][j];
+      const long long e = (long long)m * Cin + n;
       if (wsp)
-        wsp[m * Cin + n] = val;
+        wsp[e] = val;
       else
-        dx[m * Cin + n] = from_f32<T>(val);
+        dx[e] = from_f32<T>(val);
     }
   }
 }
@@ -465,6 +451,9 @@ int launch_dx(const void* g, const void* w, void* dx, void* ws, int B, int H, in
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, total_bytes);
     if (err != cudaSuccess) return (int)err;
+    // no carveout hint: the default L1/shared split leaves more L1 for
+    // g's rows, which 25 taps reread (the shared-memory-side hint ran
+    // slower on the card)
     kern<<<grid, DX_THREADS, total_bytes, s>>>(gp, wp, dxp, wsp, B, H, W, Cin, Cout, KH, KW,
                                                tps);
   }
@@ -725,8 +714,10 @@ extern "C" int conv2d_dx_launch(const void* g, const void* w, void* dx, void* ws
   const long long M = (long long)B * H * W;
   const int taps = KH * KW;
   const bool small = bn == 4 || bn == 8 || bn == 16;
+  // the tiled variant's pixel indices are ints: M + 2^20 must fit
   if (M <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 ||
       (long long)H * W > 2147483647LL || !(small || bn == 64 || bn == 128) ||
+      (!small && M > 2147483647LL - (1 << 21)) ||
       (small && Cin > bn) || splits <= 0 || taps_per_split <= 0 ||
       (long long)(splits - 1) * taps_per_split >= taps ||
       (long long)splits * taps_per_split < taps || (splits > 1 && ws == nullptr))

@@ -1,7 +1,7 @@
 // Pieces shared by the conv kernels of conv2d_fwd.cu (K1) and
-// conv2d_bwd.cu (K2, K3): fp32 <-> storage-type conversion, cp.async
-// copies into shared memory, and the fixed-order sum of split-K
-// workspace slices.
+// conv2d_bwd.cu (K2, K3), and by the SSD scan ssd_fwd.cu (K5): fp32 <->
+// storage-type conversion, cp.async copies into shared memory, and the
+// fixed-order sum of split-K workspace slices.
 //
 // Each library compiles its own copy (the header is included, not
 // linked); each names its own sum kernel around split_sum below, so a

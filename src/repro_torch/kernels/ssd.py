@@ -2,28 +2,34 @@
 CUDA kernel ``csrc/ssd_fwd.cu`` (K5).
 
 Counterpart of the Pallas TPU kernel ``repro/kernels/ssd.py::
-ssd_pallas``: per (batch, head), the chunks in order with an fp32
-(P, N) state; within a chunk the masked-decay intra-chunk product, the
-carried state's inter-chunk term, then the state update.  It returns
+ssd_pallas``, which walks the chunks of each (batch, head) in order with
+an fp32 (P, N) state.  The kernel cuts each chunk into 64-step tiles and
+runs every tile at once, in three passes: each tile's local state and
+total decay into an fp32 workspace; per (batch, head) the state entering
+each tile, a fixed-order fold of the earlier tiles' local states, and
+the final state; per tile the carried state's inter term and the
+masked-decay intra term of the tile's own causal triangle.  It returns
 ``ssd_pallas``'s y and also the final state, which the model's prefill
 keeps for decode (the JAX package takes the same state from
 ``_ssd_chunked`` on that path).  B and C come with their groups
 (B, S, G, N) and head h reads group h // (H/G); with G == H it is the
 Pallas contract's pre-expanded layout.
 
-What bounds it on an H100: about L*(N + P) operations per step for the
-intra-chunk term at chunk L, so operations, run in IEEE fp32 FMA on the
-CUDA cores; one block per (batch, head) walks the chunks in order, and
-the L x L score matrix is cut into 64 x 64 tiles of shared memory
-(L = 256 would need 256 KB, more than a block has).  Inputs are read
-through their strides (the model's slices of its projection), nothing
-is padded or expanded by a copy.
+What bounds it on an H100: at the model's widths about as many bytes
+(x, B, C, dt read once, y written once) as the fp32 operations allow,
+IEEE fp32 FMA on the CUDA cores (bf16 inputs widened as they are
+staged).  Inputs are read through their strides (the model's slices of
+its projection), staged by cp.async 16 bytes at a time where an fp32
+operand is aligned; nothing is padded or expanded by a copy.
 
 Tensors on the CPU go to the plain version (``ref.ssd_chunked_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.
 ``ssd.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +41,37 @@ MAX_HEAD_DIM = 128
 # bytes of dynamic shared memory one block may use (the kernel's own
 # limit: 227 KB less room for its static scratch)
 MAX_SMEM = 232448 - 1024
+
+
+# steps of a tile (the kernel's TILE)
+ROW_TILE = 64
+
+
+class SsdPlan(NamedTuple):
+    """How K5 cuts one scan of S steps into chunks and 64-step tiles;
+    the launcher takes ``row_tiles`` and ``tiles`` from here."""
+
+    chunk: int  # steps per chunk: min(chunk, S)
+    chunks: int  # ceil(S / chunk)
+    row_tiles: int  # 64-step tiles of a chunk
+    tiles: int  # chunks * row_tiles: the tiles of one (batch, head)
+    ws_floats: int  # each tile's P x N local state and entering state, and total decay
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> SsdPlan:
+    """K5's chunks, tiles and workspace for x (b, s, h, p), state size
+    n, a function of the shapes alone.  The last chunk may be ragged; its
+    tiles past S hold no step (pass 1 writes them a zero state, pass 3
+    skips them).  Passes 1 and 3 walk the b * h * tiles tiles with one
+    resident wave of blocks, as many as the card holds at once."""
+    if min(b, s, h, p, n, chunk) < 1:
+        raise ValueError(f"ssd_plan: want positive sizes, got {(b, s, h, p, n, chunk)}")
+    chunk = min(chunk, s)
+    chunks = -(-s // chunk)
+    row_tiles = -(-chunk // ROW_TILE)
+    tiles = chunks * row_tiles
+    return SsdPlan(chunk, chunks, row_tiles, tiles, b * h * tiles * (2 * p * n + 1))
 
 
 def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
@@ -81,23 +118,25 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     if s == 0 or p == 0 or n == 0 or p > MAX_HEAD_DIM or chunk < 1:
         raise ValueError(f"ssd: want S, P, N, chunk >= 1 and P <= {MAX_HEAD_DIM}, "
                          f"got x {tuple(x.shape)}, N={n}, chunk={chunk}")
-    chunk = min(chunk, s)
+    plan = ssd_plan(b, s, h, p, n, chunk)
+    chunk = plan.chunk
     lib = ssd_fwd_library()
-    smem = lib.ssd_fwd_smem_bytes(chunk, p, n)
+    smem = lib.ssd_fwd_smem_bytes(p, n)
     if smem > MAX_SMEM:
         raise ValueError(
-            f"ssd: chunk {chunk}, head_dim {p} and d_state {n} need {smem} "
-            f"bytes of shared memory per block, above {MAX_SMEM}"
+            f"ssd: head_dim {p} and d_state {n} need {smem} bytes of shared "
+            f"memory per block, above {MAX_SMEM}"
         )
     x, dt, a, bmat, cmat = (_last_contiguous(t) for t in (x, dt, a, bmat, cmat))
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty((plan.ws_floats,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.ssd_fwd_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-            cmat.data_ptr(), y.data_ptr(), state.data_ptr(),
-            b, s, h, g, p, n, chunk,
+            cmat.data_ptr(), y.data_ptr(), state.data_ptr(), ws.data_ptr(),
+            b, s, h, g, p, n, chunk, plan.row_tiles, plan.tiles,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
             bmat.stride(0), bmat.stride(1), bmat.stride(2),

@@ -45,20 +45,26 @@ class ServeEngine:
         batch: Dict[str, torch.Tensor],
         *,
         max_new_tokens: int,
+        cache_len: Optional[int] = None,
         sample: bool = False,
         temperature: float = 1.0,
         seed: int = 0,
+        eos_id: Optional[int] = None,
         timings: Optional[dict] = None,
     ) -> torch.Tensor:
         """Prefill the prompt batch then decode greedily or sampled.
         Returns generated tokens (B, max_new_tokens) int32.
 
         Sampling draws from a ``torch.Generator`` seeded with ``seed``
-        (on the logits' device), so it does not give jax's bits.  With a
+        (on the logits' device), so it does not give jax's bits.
+        ``cache_len`` sizes the cache (default: prompt plus new tokens);
+        once a row has emitted ``eos_id``, every later token of that row
+        is ``eos_id``, as in the JAX engine.  With a
         ``timings`` dict, the device is synchronised after the prefill
         and after the last step, and ``prefill_s``, ``decode_s`` and
         ``decode_steps`` are written into it."""
-        cache_len = batch["tokens"].shape[1] + max_new_tokens
+        b, s = batch["tokens"].shape
+        cache_len = cache_len or (s + max_new_tokens)
         t0 = time.perf_counter()
         logits, cache = self.api.prefill(self.params, batch, cache_len=cache_len)
         generator = None
@@ -70,9 +76,14 @@ class ServeEngine:
             t1 = time.perf_counter()
             timings["prefill_s"] = t1 - t0
         out = [nxt]
+        done = (torch.zeros((b,), dtype=torch.bool, device=nxt.device)
+                if eos_id is not None else None)
         for _ in range(max_new_tokens - 1):
             logits, cache = self.api.decode_step(self.params, cache, nxt[:, None])
             nxt = self._pick(logits, sample, temperature, generator)
+            if eos_id is not None:
+                done = done | (out[-1] == eos_id)
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             out.append(nxt)
         result = torch.stack(out, dim=1).to(torch.int32)
         if timings is not None:

@@ -16,6 +16,8 @@ in fp32 and round a bf16 output once, so theirs is held against the
 float64 plain version rounded to bf16 (``BF16_OUT_TOL``): at most one bf16
 step (2^-7 of the value) apart, which rtol 1e-2 holds.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -305,6 +307,23 @@ def test_dx_kernel_reruns_bit_identical(dev, shape, dtype):
     assert torch.equal(conv2d_dx(tg, tw), conv2d_dx(tg, tw))
 
 
+# the training path's dX shards: 8-image microbatches of C2 (Cin 500,
+# the tiled variant) and C1 (Cin 3, the small-Cin variant) with the Cout
+# of a device's Eq. 1 share, as chip runs have seen them
+DX_TRAIN_SHARDS = (
+    [(8, 16, 16, 500, cout, 5) for cout in (297, 336, 363, 382, 407, 444, 459, 476, 487)]
+    + [(8, 32, 32, 3, cout, 5) for cout in (106, 112, 127, 136, 148, 154, 159)]
+)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k", DX_TRAIN_SHARDS)
+def test_dx_kernel_on_train_path_shards(dev, b, h, w, cin, cout, k):
+    _, tw, tg = _bwd_inputs(dev, b, h, w, cin, cout, k, torch.float32)
+    got = conv2d_dx(tg, tw)
+    torch.testing.assert_close(got, conv2d_dx_ref(tg, tw), atol=2e-4, rtol=0.05)
+    assert torch.equal(got, conv2d_dx(tg, tw))
+
+
 def test_conv2d_function_matches_plain_autograd(dev):
     tx, tw, tg = _bwd_inputs(dev, 2, 8, 8, 6, 10, 5, torch.float32)
     x1, w1 = tx.clone().requires_grad_(), tw.clone().requires_grad_()
@@ -356,6 +375,10 @@ SSD_SHAPES = [  # (B, S, H, G, P, N, chunk)
     (2, 300, 50, 1, 64, 16, 256),  # hymba's heads, a ragged last chunk
     (1, 70, 4, 2, 32, 128, 64),    # mamba2-370m's d_state, grouped B/C
     (2, 9, 2, 1, 16, 4, 256),      # shorter than one chunk
+    (4, 2048, 50, 1, 64, 16, 256),  # hymba's prefill: 8 chunks of 4 row tiles
+    (2, 700, 6, 6, 64, 16, 256),    # G = H, a ragged last chunk of 188 steps
+    (1, 100, 3, 1, 64, 16, 256),    # S < L at hymba's widths
+    (2, 600, 4, 2, 20, 16, 256),    # P = 20, padded to 32
 ]
 
 
@@ -479,6 +502,91 @@ def test_ssd_matches_plain_version(dev, b, s, h, g, p, n, chunk, dtype):
         y_want, y_rtol = y_want.to(tdtype).double(), BF16_OUT_TOL[1]
     torch.testing.assert_close(y.double(), y_want, atol=atol, rtol=y_rtol)
     torch.testing.assert_close(final.double(), final_want, atol=atol, rtol=0.05)
+
+
+def _projection_views(dev, dtype, b, s, h, g, p, n, cols, width, seed=0):
+    """x, B and C as the model slices them from its in-projection: views
+    of one (B, S, width) buffer starting at columns ``cols`` (x, B, C),
+    so each is read through a row stride of ``width`` elements; an odd
+    column or width leaves an operand's rows off 16 bytes."""
+    x, dt, a, bm, cm = _ssd_inputs_on(dev, torch.float32, b, s, h, g, p, n, seed)
+    buf = torch.zeros((b, s, width), dtype=dtype, device=dev)
+    views = []
+    for t, col in zip((x, bm, cm), cols):
+        sl = buf[:, :, col : col + t.shape[2] * t.shape[3]]
+        sl.copy_(t.reshape(b, s, -1))
+        views.append(sl.view(t.shape))
+    return views[0], dt, a, views[1], views[2]
+
+
+# K5's copy paths, fp32: every operand 16-byte copies (aligned columns
+# and row stride), then each of x, B and C alone on the 4-byte copies (a
+# column off 16 bytes), then all of them (an odd row stride)
+SSD_VIEW_CASES = {  # name: (columns of x, B, C; row width), at H 4, P 64, G 1, N 16
+    "aligned": ((32, 0, 16), 288),
+    "x unaligned": ((33, 0, 16), 292),
+    "B unaligned": ((0, 257, 276), 292),
+    "C unaligned": ((0, 256, 273), 292),
+    "odd row stride": ((0, 256, 272), 289),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("case", sorted(SSD_VIEW_CASES))
+def test_ssd_reads_strided_projection_views(dev, case, dtype):
+    tdtype, _ = TOL[dtype]
+    cols, width = SSD_VIEW_CASES[case]
+    x, dt, a, bm, cm = _projection_views(dev, tdtype, 2, 600, 4, 1, 64, 16, cols, width)
+    assert x.stride(1) == bm.stride(1) == cm.stride(1) == width
+    y, final = ssd(x, dt, a, bm, cm, chunk=256)
+    y_want, final_want = ssd_chunked_ref(x.double(), dt.double(), a.double(), bm.double(),
+                                         cm.double(), 256)
+    atol, y_rtol = 10 * TOL["float32"][1], 0.05
+    if tdtype == torch.bfloat16:
+        y_want, y_rtol = y_want.to(tdtype).double(), BF16_OUT_TOL[1]
+    torch.testing.assert_close(y.double(), y_want, atol=atol, rtol=y_rtol)
+    torch.testing.assert_close(final.double(), final_want, atol=atol, rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_ssd_reruns_bit_identical(dev, dtype):
+    """Each chunk's state is summed and folded in a fixed order, without
+    atomics: a rerun at hymba's prefill shape gives the same bits."""
+    args = _ssd_inputs_on(dev, TOL[dtype][0], 4, 2048, 50, 1, 64, 16)
+    y, final = ssd(*args, chunk=256)
+    y2, final2 = ssd(*args, chunk=256)
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+
+
+def _traced_grids(path, fn, calls=3):
+    """The launch grids of each kernel ``fn`` runs on the card, by name,
+    from the profiler's trace of ``calls`` calls written to ``path`` (a
+    trace that follows another in the same process can lose its first
+    kernel records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    grids = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            grids.setdefault(e["name"], set()).add(tuple(e["args"]["grid"]))
+    return grids
+
+
+def test_ssd_tile_passes_launch_more_blocks_than_heads(dev, tmp_path):
+    """K5 is chunk-parallel: at hymba's prefill each tile pass launches
+    more blocks than the B * H = 200 of one block per (batch, head)."""
+    args = _ssd_inputs_on(dev, torch.float32, 4, 2048, 50, 1, 64, 16)
+    ssd(*args, chunk=256)  # built and warm outside the trace
+    grids = _traced_grids(tmp_path / "trace.json", lambda: ssd(*args, chunk=256))
+    for kernel in ("ssd_fwd_kernel", "ssd_out_kernel"):
+        (found,) = [g for name, g in grids.items() if kernel in name]
+        (grid,) = found
+        assert grid[0] > 4 * 50 and grid[1:] == (1, 1), (kernel, grid)
 
 
 def test_ssd_refuses_what_it_does_not_take(dev):

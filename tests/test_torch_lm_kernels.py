@@ -37,6 +37,7 @@ from repro_torch import convert
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.ssd import ROW_TILE, ssd_plan
 from repro_torch.layers import attention, embedding, mamba2, mlp, norm
 
 RULES = rules_for_mode("megatron")
@@ -175,6 +176,43 @@ def test_ssd_chunk_is_cut_to_the_sequence():
     y5, final5 = ssd_chunked_ref(x, dt, a, bm, cm, 5)
     torch.testing.assert_close(y, y5, atol=0, rtol=0)
     torch.testing.assert_close(final, final5, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (4, 2048, 50, 64, 16, 256),  # hymba's prefill
+    (4, 2000, 50, 64, 16, 256),  # a ragged last chunk
+    (1, 100, 3, 64, 16, 256),    # S < L
+    (2, 700, 6, 20, 16, 256),
+    (2, 25, 1, 4, 4, 8),         # chunks shorter than a row tile
+    (1, 70, 4, 32, 128, 64),
+    (1, 130, 2, 8, 4, 100),      # a chunk of two row tiles, the second ragged
+])
+def test_ssd_plan_covers_every_step_once(b, s, h, p, n, chunk):
+    """K5's plan is a function of the shapes; its chunks and tiles cover
+    every step exactly once, and no tile crosses a chunk's end."""
+    plan = ssd_plan(b, s, h, p, n, chunk)
+    assert plan == ssd_plan.__wrapped__(b, s, h, p, n, chunk)
+    covered = np.zeros(s, int)
+    for c in range(plan.chunks):
+        for r in range(plan.row_tiles):
+            lo = c * plan.chunk + r * ROW_TILE
+            hi = min(lo + ROW_TILE, (c + 1) * plan.chunk, s)
+            if lo < hi:
+                covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert plan.chunk == min(chunk, s) and (plan.chunks - 1) * plan.chunk < s
+    assert (plan.row_tiles - 1) * ROW_TILE < plan.chunk <= plan.row_tiles * ROW_TILE
+    assert plan.tiles == plan.chunks * plan.row_tiles
+    assert plan.ws_floats == b * h * plan.tiles * (2 * p * n + 1)
+
+
+def test_ssd_plan_at_hymba_prefill():
+    """hymba's prefill: 8 chunks of 4 tiles a (batch, head), 6,400 tiles
+    in all for the tile passes' blocks to walk (their launch grid is held
+    above B * H on the card by tests/test_torch_gpu.py)."""
+    plan = ssd_plan(4, 2048, 50, 64, 16, 256)
+    assert (plan.chunk, plan.chunks, plan.row_tiles, plan.tiles) == (256, 8, 4, 32)
+    assert 4 * 50 * plan.tiles == 6400
 
 
 # ---------------------------------------------------------------------------

@@ -77,7 +77,18 @@ CASES = {
                     ssm=dict(d_state=4, d_conv=3, expand=2, head_dim=16, chunk_size=4)),
     "hymba-1.5b reduced": (jax_reduced(jax_get_config("hymba-1.5b")),
                            reduced_for_smoke(get_config("hymba-1.5b"))),
+    # the config knobs the families above leave at their defaults
+    "gelu": _pair(activation="gelu"),
+    "squared-relu non-gated": _pair(activation="squared_relu", gated_mlp=False),
+    "layernorm": _pair(norm="layernorm"),
+    "logit softcap": _pair(logit_softcap=30.0),
+    "rope theta 5e6": _pair(rope_theta=5e6),
+    "head_dim 24": _pair(head_dim=24),
+    "tied embeddings": _pair(tie_embeddings=True),
 }
+CASES.update({f"{arch} reduced": (jax_reduced(jax_get_config(arch)),
+                                  reduced_for_smoke(get_config(arch)))
+              for arch in ("yi-6b", "mamba2-370m", "minicpm-2b")})
 
 
 def _models(name):
@@ -142,6 +153,28 @@ def test_engine_greedy_tokens_equal_jax(name):
     assert got.dtype == torch.int32 and tuple(got.shape) == (2, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert timings["decode_steps"] == 5 and timings["prefill_s"] > 0
+
+
+@pytest.mark.parametrize("name", ["dense-gqa", "hybrid"])
+def test_engine_eos_and_cache_len_equal_jax(name):
+    """``eos_id`` pins a row to it once the row has emitted it, and
+    ``cache_len`` sizes the cache past prompt plus new tokens, as in the
+    JAX engine.  The eos is row 0's greedy token at the first step whose
+    next token differs, so it fires mid-sequence and changes what follows."""
+    jcfg, japi, jparams, tapi, tparams = _models(name)
+    toks = _tokens(jcfg, (2, 8), seed=2)
+    n_new, cache_len = 8, 8 + 8 + 5
+    jeng = JaxServeEngine(api=japi, run=JaxRunConfig(), params=jparams)
+    free = np.asarray(jeng.generate({"tokens": toks}, max_new_tokens=n_new))
+    at = next(i for i in range(1, n_new - 1) if free[0, i + 1] != free[0, i])
+    eos = int(free[0, at])
+    want = np.asarray(jeng.generate({"tokens": toks}, max_new_tokens=n_new,
+                                    cache_len=cache_len, eos_id=eos))
+    assert (want[0, at:] == eos).all() and want[0, at + 1] != free[0, at + 1]
+    got = ServeEngine(api=tapi, params=tparams).generate(
+        {"tokens": torch.from_numpy(toks)}, max_new_tokens=n_new, cache_len=cache_len,
+        eos_id=eos)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_engine_sampling_is_seeded():

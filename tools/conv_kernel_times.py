@@ -11,7 +11,11 @@ parent), to compare them on one card.  Each shape prints one JSON line:
 back-to-back wrapper calls divided by ``reps`` (the host's work per call
 included: a launch-bound shape measures the wrapper); ``device_ms``, the
 summed device time of every kernel and memset those calls ran, from a
-``torch.profiler`` trace, divided by ``reps``; the wrapper's launches
+``torch.profiler`` trace, divided by ``reps``; ``library_ms`` and
+``library_device_ms``, the same two times of the one PyTorch call that
+computes the same function (``F.conv2d``, ``conv2d_input``,
+``conv2d_weight`` on NCHW copies, TF32 off: a yardstick the port never
+calls); the wrapper's launches
 per call; and ``sm_clock_mhz``, the median of the SM clocks that
 ``nvidia-smi`` read while the timed rounds ran (null when the rounds
 were too short for a reading).  The first line names the card and its
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 
 # (kernel, label, (B, H, W, Cin, Cout, k)): the C1 and C2 shards of the
-# serving (4 images) and training (8) paths, and both layers at batch 32
+# serving (4 images) and training (8) paths, and both layers at batch 32;
+# K2's training shards span the Cout that Eq. 1's shares gave them
 SHAPES = [
     ("conv2d_fwd", "C1 serve shard", (4, 32, 32, 3, 172, 5)),
     ("conv2d_fwd", "C1 serve, whole layer", (4, 32, 32, 3, 500, 5)),
@@ -46,6 +51,12 @@ SHAPES = [
     ("conv2d_dw", "C1 batch 32", (32, 32, 32, 3, 500, 5)),
     ("conv2d_dw", "C2 train shard", (8, 16, 16, 500, 459, 5)),
     ("conv2d_dw", "C2 batch 32", (32, 16, 16, 500, 1500, 5)),
+    ("conv2d_dx", "C1 train shard", (8, 32, 32, 3, 106, 5)),
+    ("conv2d_dx", "C1 train shard", (8, 32, 32, 3, 159, 5)),
+    ("conv2d_dx", "C2 train shard", (8, 16, 16, 500, 297, 5)),
+    ("conv2d_dx", "C2 train shard", (8, 16, 16, 500, 363, 5)),
+    ("conv2d_dx", "C2 train shard", (8, 16, 16, 500, 459, 5)),
+    ("conv2d_dx", "C2 train shard", (8, 16, 16, 500, 487, 5)),
     ("conv2d_dx", "C1 batch 32", (32, 32, 32, 3, 500, 5)),
     ("conv2d_dx", "C2 batch 32", (32, 16, 16, 500, 1500, 5)),
 ]
@@ -65,6 +76,52 @@ def sample_sm_clock(stop: threading.Event, mhz: list) -> None:
         mhz.append(int(smi("clocks.sm")))
 
 
+def library_call(kind, x, w, g):
+    """The one PyTorch call that computes the kernel's function, on
+    NCHW/OIHW copies made outside the timed call."""
+    import torch.nn.functional as F
+
+    pad = w.shape[0] // 2
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    gc = g.permute(0, 3, 1, 2).contiguous()
+    wc = w.permute(3, 2, 0, 1).contiguous()
+    if kind == "conv2d_fwd":
+        return lambda: F.conv2d(xc, wc, padding=pad)
+    if kind == "conv2d_dx":
+        return lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gc, padding=pad)
+    return lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gc, padding=pad)
+
+
+def timed(fn, reps: int):
+    """(median over 3 rounds of the CUDA-event ms per call, the SM clock
+    readings taken meanwhile, the profiler's device ms per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per, mhz, stop = [], [], threading.Event()
+    watcher = threading.Thread(target=sample_sm_clock, args=(stop, mhz))
+    watcher.start()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    stop.set()
+    watcher.join()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return statistics.median(per), mhz[:-1], dev_us / 1e3 / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True, help="the directory holding repro_torch/")
@@ -77,13 +134,13 @@ def main() -> int:
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
     import repro_torch.kernels.conv2d as conv
-    from torch.profiler import ProfilerActivity, profile
 
     if not Path(conv.__file__).resolve().is_relative_to(src):
         raise SystemExit(f"repro_torch came from {conv.__file__}, not {src}")
     print(json.dumps({"label": args.label, "src": str(src),
                       "nvidia_smi": smi("name,power.limit", "csv,noheader"),
                       "max_sm_clock_mhz": int(smi("clocks.max.sm"))}), flush=True)
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     calls = {
         "conv2d_fwd": lambda x, w, g: conv.conv2d(x, w),
@@ -98,35 +155,16 @@ def main() -> int:
             rng.standard_normal((b, h, w, cout))))
         fn = calls[kind]
         wrapper = getattr(conv, {"conv2d_fwd": "conv2d"}.get(kind, kind))
-        fn(x, wt, g)
-        torch.cuda.synchronize()
-        per, mhz, stop = [], [], threading.Event()
-        watcher = threading.Thread(target=sample_sm_clock, args=(stop, mhz))
-        watcher.start()
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(args.reps):
-                fn(x, wt, g)
-            end.record()
-            end.synchronize()
-            per.append(start.elapsed_time(end) / args.reps)
-        stop.set()
-        watcher.join()
-        mhz = mhz[:-1]  # the last reading may have begun after the rounds
         before = wrapper.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                fn(x, wt, g)
-            torch.cuda.synchronize()
-        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        ms, mhz, dev_ms = timed(lambda: fn(x, wt, g), args.reps)
+        launches = (wrapper.launches - before) / (args.reps * 4 + 1)
+        lib_ms, _, lib_dev_ms = timed(library_call(kind, x, wt, g), args.reps)
         print(json.dumps({
             "label": args.label, "kernel": kind, "case": label,
             "shape": {"x": [b, h, w, cin], "w": [k, k, cin, cout]},
-            "ms": statistics.median(per), "device_ms": dev_us / 1e3 / args.reps,
-            "launches_per_call": (wrapper.launches - before) / args.reps,
+            "ms": ms, "device_ms": dev_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "launches_per_call": launches,
             "sm_clock_mhz": statistics.median(mhz) if mhz else None,
         }), flush=True)
     return 0
