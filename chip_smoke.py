@@ -84,11 +84,30 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the model's ``attention_fn`` and ``ssd_fn``): logits within
    ``LM_RTOL`` of the largest logit, and the prefill's cache;
 14. main-path shapes (lm_serve) — K4 and K5 at every shape the lm_serve
-   run gave them, timed in isolation.
+   run gave them, timed in isolation;
+15. hierarchy — phase 7's training run (its network, batch,
+   microbatches, steps and lr, held against its float64 steps) over
+   the two-tier hierarchy: ``run_hetero(groups="2x2",
+   group_partition="kernel")`` with a ``cuda`` root and two sub-master
+   groups of one ``cuda`` and one ``numpy`` device each.  (a) in process,
+   inside a profiler trace: every loss finite, step 1 within 1e-5 / 1e-4
+   of the float64 step, each sub-master's hello meta a group of 2, K1, K2
+   and K3 each launched and each wrapper's count equal to the trace's;
+   (b) over tcp, each sub-master an OS process with its own CUDA context:
+   the same loss and param checks, and per process the seconds from
+   spawn to welcome, the device memory it holds before shutdown
+   (``nvidia-smi``) and whether it is gone after; one left behind, or a
+   kernel library rebuilt by a sub-master, fails the run.  One line per
+   run, then K1-K3 at every shape the in-process run gave them.  Last:
+   on the card (PyTorch 2.11) a short trace that follows a large one
+   (this run's, or lm_serve's) can lose every kernel record, which
+   failed phase 11's 3-call grid trace when this phase ran after phase
+   9; the phase records how many of 3 K1 launches a short trace sees
+   just before and just after it.
 
 Every wrapper's launch count is set to 0 just before a main-path run
-(serve, train, lm_serve) and read just after.  Then, on lines of their own: the
-``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
+(serve, train, lm_serve, the in-process hierarchy) and read just after.
+Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
 repository beside this file, it exits non-zero before printing any
@@ -102,6 +121,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -428,16 +448,19 @@ class ShapeLog:
         self.backend = backend
         self.fwd = collections.Counter()
         self.bwd = collections.Counter()
+        self.lock = threading.Lock()  # devices on threads share the backend
 
     def __enter__(self):
         conv, vjp = self.backend.conv, self.backend.conv_vjp
 
         def observed_conv(x, w):
-            self.fwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
+            with self.lock:
+                self.fwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
             return conv(x, w)
 
         def observed_vjp(x, w, g):
-            self.bwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
+            with self.lock:
+                self.bwd[tuple(x.shape) + (w.shape[-1], w.shape[0])] += 1
             return vjp(x, w, g)
 
         self.backend.conv, self.backend.conv_vjp = observed_conv, observed_vjp
@@ -445,6 +468,127 @@ class ShapeLog:
 
     def __exit__(self, *exc):
         del self.backend.conv, self.backend.conv_vjp
+
+
+def smi_query(*args) -> list:
+    """``nvidia-smi`` rows of a query, each a list of its fields (no
+    units)."""
+    out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [[f.strip() for f in ln.split(",")] for ln in out.stdout.splitlines()
+            if ln.strip()]
+
+
+def _number(field: str):
+    """A numeric ``nvidia-smi`` field, or None where it reads ``[N/A]``."""
+    try:
+        return float(field)
+    except ValueError:
+        return None
+
+
+def compute_apps() -> dict:
+    """pid -> MiB of device memory, for every process that holds a
+    context on the card, as ``nvidia-smi`` sees it."""
+    return {int(pid): _number(mib) for pid, mib in
+            smi_query("--query-compute-apps=pid,used_memory")}
+
+
+def memory_used_mib():
+    return _number(smi_query("--query-gpu=memory.used")[0][0])
+
+
+class SubMasterLog:
+    """Watches the hierarchy's root (``cls``, the port's
+    ``HierarchicalCluster``) through one ``run_hetero`` call: the
+    seconds from each sub-master process's spawn to its welcome, each
+    sub-master's hello metadata, and just before ``shutdown`` the device
+    memory each process holds (``nvidia-smi``); just after, whether each
+    process is gone from the host and the card."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.spawned, self.welcomed, self.procs = {}, {}, {}
+        self.hello_meta = {}
+        self.apps_before, self.apps_after = {}, {}
+        self.mem_mib = {}
+
+    def _patch(self, name, make):
+        self._saved[name] = self.cls.__dict__.get(name)
+        setattr(self.cls, name, make(getattr(self.cls, name)))
+
+    def __enter__(self):
+        self._saved = {}
+        self.mem_mib["before"] = memory_used_mib()
+
+        def spawn(orig):
+            def wrapped(cluster, dev, *a, **kw):
+                self.spawned[dev] = time.perf_counter()
+                self.procs[dev] = orig(cluster, dev, *a, **kw)
+                return self.procs[dev]
+            return wrapped
+
+        def accept(orig):
+            def wrapped(cluster, *a, **kw):
+                chan, dev, meta = orig(cluster, *a, **kw)
+                self.welcomed[dev] = time.perf_counter()
+                return chan, dev, meta
+            return wrapped
+
+        def shutdown(orig):
+            def wrapped(cluster):
+                self.hello_meta = {d: cluster.hello_meta.get(d) for d in cluster.slave_ids}
+                self.apps_before = compute_apps()
+                self.mem_mib["before_shutdown"] = memory_used_mib()
+                orig(cluster)
+                self.apps_after = compute_apps()
+                self.mem_mib["after_shutdown"] = memory_used_mib()
+            return wrapped
+
+        self._patch("_spawn_slave_proc", spawn)
+        self._patch("_accept_slave", accept)
+        self._patch("shutdown", shutdown)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            if fn is None:
+                delattr(self.cls, name)
+            else:
+                setattr(self.cls, name, fn)
+
+    def sub_masters(self) -> list:
+        """One record per spawned sub-master process."""
+        return [{"device": dev, "pid": p.pid,
+                 "spawn_to_welcome_s": self.welcomed[dev] - self.spawned[dev],
+                 "used_memory_mib": self.apps_before.get(p.pid),
+                 "returncode": p.poll(),
+                 "gone_after_shutdown": p.poll() is not None
+                 and p.pid not in self.apps_after}
+                for dev, p in sorted(self.procs.items())]
+
+
+def k1_records_in_a_trace(ks, dev, calls: int = 3) -> int:
+    """How many of ``calls`` K1 launches a fresh profiler trace records
+    (a short trace can lose kernel records after a large one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1, 8, 8, 3, device=dev)
+    w = torch.ones(5, 5, 3, 16, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ks.wrapper["conv2d_fwd"](x, w)
+        torch.cuda.synchronize()
+    return sum("conv2d_fwd_kernel" in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def build_dir_state() -> dict:
+    """The kernel build directory's files and their modification times."""
+    from repro_torch.kernels import _build
+
+    return {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()
+            if p.suffix != ".lock"}
 
 
 def reset_counts(ks: Kernels) -> None:
@@ -1183,7 +1327,7 @@ def main() -> int:
                                          x.dtype)] += 1
         return ks.wrapper["ssd"](x, dt, a, bm, cm, chunk=chunk)
 
-    steps = 4
+    traced_steps = 4
     with torch.inference_mode():
         reset_counts(ks)
         logits, cache = api.prefill(engine.params, lm_inputs, cache_len=prompt + new,
@@ -1196,7 +1340,7 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as dprof:
             reset_counts(ks)
             t_run = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(traced_steps):
                 logits, cache = api.decode_step(engine.params, cache, nxt[:, None])
                 nxt = logits.argmax(-1)
             torch.cuda.synchronize()
@@ -1210,7 +1354,7 @@ def main() -> int:
                                           for k in ("flash_attention", "ssd")):
         fail(f"lm_serve: decode launched {decode_counts}")
     decode_ms = untraced["decode_s"] / untraced["decode_steps"] * 1e3
-    events_per_step = decode_trace["device_events"] / steps
+    events_per_step = decode_trace["device_events"] / traced_steps
     emit({"phase": "lm_serve", "arch": arch, "full": True,
           "dtype": str(lm_cfg.compute_dtype).split(".")[-1],
           "params_b": sum(t.numel() for t in _leaves(engine.params)) / 1e9,
@@ -1225,9 +1369,9 @@ def main() -> int:
           "peak_memory_gb": peak_gb, "launches": lm_counts,
           "prefill_launches": prefill_counts, "decode_launches": decode_counts,
           "trace": lm_trace,
-          "decode_trace": {"steps": steps, "device_events_per_step": events_per_step,
-                           "traced_ms_per_step": decode_traced_s / steps * 1e3,
-                           "busy_ms_per_step": decode_trace["busy_ms"] / steps,
+          "decode_trace": {"steps": traced_steps, "device_events_per_step": events_per_step,
+                           "traced_ms_per_step": decode_traced_s / traced_steps * 1e3,
+                           "busy_ms_per_step": decode_trace["busy_ms"] / traced_steps,
                            "busy_share": decode_trace["busy_share"],
                            "untraced_us_per_device_event":
                                decode_ms * 1e3 / events_per_step},
@@ -1255,17 +1399,136 @@ def main() -> int:
         emit(r)
         ssd_recs.append(r)
 
+    # -- 15. train the headline network over two sub-master groups ----------
+    from repro_torch.core.cluster.hierarchy import HierarchicalCluster
+
+    hier_backends = ["cuda", "cuda", "numpy", "cuda", "numpy"]
+    hier_kw = dict(device="cuda", train_pipeline=True, groups="2x2",
+                   group_partition="kernel", microbatches=micro, c1=c1, c2=c2,
+                   batch=batch, steps=steps, lr=lr)
+
+    def hier_record(run, hrec, hist, hlog, wall_run_s):
+        """The run's record, failing unless every loss is finite, step 1
+        equals the float64 step and every sub-master said it masters a
+        group of 2."""
+        if not np.isfinite(hrec["losses"]).all():
+            fail(f"hierarchy {run}: non-finite losses {hrec['losses']}")
+        l_errs = [abs(a - b) for a, b in zip(hrec["losses"], ref_losses)]
+        p_errs = [params_err(a, b) for a, b in zip(hist, ref_params)]
+        if l_errs[0] > LOSS_ATOL or p_errs[0] > PARAM_ATOL:
+            fail(f"hierarchy {run}: step 1 vs the float64 step, loss err "
+                 f"{l_errs[0]} (atol {LOSS_ATOL}), param err {p_errs[0]} "
+                 f"(atol {PARAM_ATOL})")
+        metas = [m.get("group") if m else None for m in hlog.hello_meta.values()]
+        if len(metas) != 2 or any(not m or m.get("size") != 2 for m in metas):
+            fail(f"hierarchy {run}: sub-masters' hello meta {hlog.hello_meta}")
+        t = hrec["timing"]
+        return {"phase": "hierarchy", "run": run, "net": f"cifar_cnn_{c1}_{c2}",
+                "topology": "2x2", "backends": hier_backends,
+                "root_partition": hrec["partition"], "group_partition": "kernel",
+                "transport": hrec["transport"], "batch": batch,
+                "microbatches": micro, "steps": steps, "lr": lr,
+                "s_per_step": hrec["wall_s"] / steps, "wall_s": hrec["wall_s"],
+                "run_s": wall_run_s, "probe_s": hrec["probe_s"],
+                "root_shares": hrec["shares"], "group_shares": hrec["group_shares"],
+                "group_meta": metas,
+                "timing_s": {k: t[k] for k in ("conv_s", "gather_wait_s",
+                                               "master_conv_s")},
+                "timing_all_s": t, "comp_duty": hrec["comp_duty"],
+                "comm_mb": hrec["comm_mb"], "failures": hrec["failures"],
+                "losses": hrec["losses"], "f64_losses": ref_losses,
+                "loss_err_by_step": l_errs, "param_err_by_step": p_errs,
+                "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+                "flat_s_per_step": trec["wall_s"] / steps,
+                "flat_devices": len(backends), "devices": len(hier_backends),
+                "note": "flat_s_per_step is phase train's, context only: "
+                        "3 devices there, 5 here"}
+
+    # (a) in process: the sub-masters are threads, every kernel in this
+    # process's counters and trace
+    k1_records_before = k1_records_in_a_trace(ks, dev)
+    with SubMasterLog(HierarchicalCluster) as hlog, ShapeLog(cuda_backend) as hier_log, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        hrec, hier_trained = run_hetero([1.0] * 5, hier_backends, **hier_kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        hier_counts = read_counts(ks)
+    hier_trace = device_trace(prof, run_s)
+    for kind in CONV_KINDS:
+        n = hier_counts[kind]
+        if n == 0:
+            fail(f"hierarchy inproc: the {kind} kernel was never launched")
+        if hier_trace["kernels"][kind]["launches"] != n:
+            fail(f"hierarchy inproc: the trace holds "
+                 f"{hier_trace['kernels'][kind]['launches']} {kind} launches, "
+                 f"the wrapper counted {n}")
+    rec_a = hier_record("inproc", hrec, hier_trained, hlog, run_s)
+    rec_a.update(k1_records_of_3_in_a_trace={
+        "before": k1_records_before, "after": k1_records_in_a_trace(ks, dev)})
+    rec_a.update(launches=hier_counts, trace=hier_trace,
+                 fwd_by_shape=[list(k) + [n] for k, n in sorted(hier_log.fwd.items())],
+                 bwd_by_shape=[list(k) + [n] for k, n in sorted(hier_log.bwd.items())])
+    emit(rec_a)
+
+    # (b) over tcp: each sub-master an OS process with its own CUDA
+    # context, its group's devices threads in it; its kernels are outside
+    # this process's counters and trace, so the run is held on its numbers
+    builds_before = build_dir_state()
+    with SubMasterLog(HierarchicalCluster) as tlog:
+        t_run = time.perf_counter()
+        trec_tcp, tcp_trained = run_hetero([1.0] * 5, hier_backends,
+                                           transport="tcp", **hier_kw)
+        run_s = time.perf_counter() - t_run
+    rec_b = hier_record("tcp", trec_tcp, tcp_trained, tlog, run_s)
+    subs = tlog.sub_masters()
+    if len(subs) != 2:
+        fail(f"hierarchy tcp: {len(subs)} sub-master processes, not 2")
+    left = [r for r in subs if not r["gone_after_shutdown"]]
+    if left:
+        fail(f"hierarchy tcp: sub-masters left after shutdown: {left}")
+    builds_after = build_dir_state()
+    if builds_after != builds_before:
+        fail(f"hierarchy tcp: a sub-master rebuilt a kernel library: "
+             f"{sorted(set(builds_after.items()) ^ set(builds_before.items()))}")
+    m = tlog.mem_mib
+    freed = (m["before_shutdown"] - m["after_shutdown"]
+             if None not in (m["before_shutdown"], m["after_shutdown"]) else None)
+    rec_b.update(sub_masters=subs, device_memory_used_mib=tlog.mem_mib,
+                 freed_at_shutdown_mib=freed,
+                 freed_per_sub_master_mib=None if freed is None else freed / len(subs),
+                 compute_apps_before_shutdown=tlog.apps_before,
+                 compute_apps_after_shutdown=tlog.apps_after,
+                 kernel_libraries_reloaded_not_rebuilt=True,
+                 measured_bandwidth_mbps=trec_tcp["measured_bandwidth_mbps"])
+    emit(rec_b)
+
+    # the hierarchy run's shapes, as phase 9 does the flat run's
+    hier_recs = {
+        "conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, hier_log.fwd,
+                                  "main_path_shape", "hierarchy"),
+        "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, hier_log.bwd,
+                                 "main_path_shape", "hierarchy"),
+        "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, hier_log.bwd,
+                                 "main_path_shape", "hierarchy"),
+    }
+    torch.cuda.empty_cache()
+
     kernels = [
         entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
               "src/repro/kernels/conv2d.py:78",
               {"serve": (serve_recs, serve_trace),
-               "train": (train_recs["conv2d_fwd"], train_trace)}),
+               "train": (train_recs["conv2d_fwd"], train_trace),
+               "hierarchy": (hier_recs["conv2d_fwd"], hier_trace)}),
         entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:94",
-              {"train": (train_recs["conv2d_dx"], train_trace)}),
+              {"train": (train_recs["conv2d_dx"], train_trace),
+               "hierarchy": (hier_recs["conv2d_dx"], hier_trace)}),
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
-              {"train": (train_recs["conv2d_dw"], train_trace)}),
+              {"train": (train_recs["conv2d_dw"], train_trace),
+               "hierarchy": (hier_recs["conv2d_dw"], hier_trace)}),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
               {"lm_serve": (attn_recs, lm_trace)}, dtype=lm_cfg.compute_dtype),

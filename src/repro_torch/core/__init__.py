@@ -12,14 +12,22 @@ from __future__ import annotations
 from repro_torch.lazy import lazy_exports
 
 _EXPORTS = {
+    # costmodel
+    "ConvLayerSpec": "repro_torch.core.costmodel",
+    "comm_time_s": "repro_torch.core.costmodel",
+    "paper_network": "repro_torch.core.costmodel",
+    "predict_step_time": "repro_torch.core.costmodel",
+    "upload_bytes": "repro_torch.core.costmodel",
+    "upload_elements": "repro_torch.core.costmodel",
+    "upload_elements_nodes": "repro_torch.core.costmodel",
     # backends
     "available_backends": "repro_torch.core.backends",
     "get_backend": "repro_torch.core.backends",
     "probe_conv_time": "repro_torch.core.backends",
     "register_backend": "repro_torch.core.backends",
-    # master/slave cluster
-    "HeteroCluster": "repro_torch.core.cluster.cluster",
-    "make_distributed_conv": "repro_torch.core.cluster.cluster",
+    # master/slave cluster (core/cluster/ package behind the shim)
+    "HeteroCluster": "repro_torch.core.master_slave",
+    "make_distributed_conv": "repro_torch.core.master_slave",
     # partitioner
     "allocate_kernels": "repro_torch.core.partitioner",
     "effective_times": "repro_torch.core.partitioner",

@@ -12,11 +12,16 @@
     scheduler.py — the pipelined schedules (microbatch double-buffering,
                    forward chain, fwd+bwd train chain) over any transport
     cluster.py   — ``HeteroCluster`` (the master, Algorithm 1) wiring it
-                   all together
+                   all together, plus ``make_distributed_conv``
+    hierarchy.py — the two-tier composition: ``HierarchicalCluster``
+                   (a batch-axis root over sub-master groups) and
+                   ``GroupSpec``/``parse_groups`` topology parsing
 
 Attribute access is lazy (PEP 562) so that TCP slave subprocesses —
 which import ``repro_torch.core.cluster.protocol`` — never pay for
 torch or the master-side stack until a backend needs it.
+``repro_torch.core.master_slave`` remains the stable import surface; it
+re-exports everything from here.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ from repro_torch.lazy import lazy_exports
 _EXPORTS = {
     "HeteroCluster": ".cluster",
     "make_distributed_conv": ".cluster",
+    "HierarchicalCluster": ".hierarchy",
+    "GroupSpec": ".hierarchy",
+    "parse_groups": ".hierarchy",
     "Transport": ".transport",
     "InProcTransport": ".transport",
     "SharedNIC": ".transport",

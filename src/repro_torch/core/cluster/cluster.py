@@ -98,6 +98,11 @@ from repro_torch.core.cluster.transport import (
 from repro_torch.core.partitioner import allocate_kernels, effective_times
 
 
+def _np_probe(*, slowdown: float = 1.0, **probe_kwargs) -> float:
+    """The paper's §4.1.1 probe on the numpy backend (seed behaviour)."""
+    return probe_conv_time("numpy", slowdown=slowdown, **probe_kwargs)
+
+
 def _src_pythonpath() -> str:
     """The import root of this package, prepended to a slave subprocess's
     PYTHONPATH so ``-m repro_torch.core.cluster.protocol`` resolves without an
@@ -329,7 +334,8 @@ class HeteroCluster:
         self._next_slave_id = 1
         self._registry: Dict[int, Transport] = {}  # every slave EVER, dead too
         # each member's hello metadata by device id ({} for in-proc
-        # threads, which have no handshake): an open dict
+        # threads, which have no handshake): an open dict — sub-masters
+        # ride a "group" entry through it without touching the grammar
         self.hello_meta: Dict[int, dict] = {}
         self.sockets: List[Transport] = []
         self.procs: List[Optional[subprocess.Popen]] = []
@@ -423,6 +429,9 @@ class HeteroCluster:
     def _start_inproc_slave(
         self, slowdown: float, backend: str, bandwidth: Optional[float]
     ) -> int:
+        """Start one in-proc slave thread on a fresh link and return its
+        device id — a seam subclasses override (the hierarchy starts a
+        sub-master thread over a whole inner cluster here instead)."""
         link = InProcTransport(
             bandwidth, self._wire_np_dtype, wire_codec=self._link_codec(),
             nic=self._nic,
@@ -467,8 +476,10 @@ class HeteroCluster:
         return env
 
     def _slave_cmd(self, dev: int, slowdown: float, backend: str) -> list:
-        """The argv a spawned slave process runs.  The auth token is NOT
-        here: it rides the environment (argv shows in ps)."""
+        """The argv a spawned slave process runs — a seam subclasses
+        extend (the hierarchy appends ``--group-*`` flags to turn the
+        process into a sub-master).  The auth token is NOT here: it
+        rides the environment (argv shows in ps)."""
         # a listener bound to the wildcard interface is not a connect
         # target; local spawns dial loopback
         host = (

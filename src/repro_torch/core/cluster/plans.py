@@ -391,6 +391,43 @@ def plan_conv(
     )
 
 
+def group_aggregate_time(times: Sequence[float]) -> float:
+    """Aggregate Eq. 1 probe time of a GROUP of devices working in
+    parallel: member compute RATES add, so the group's time per probe
+    workload is the harmonic combination ``1 / sum(1 / t_i)`` — always
+    positive, and degenerate topologies stay well-defined (a one-member
+    group is just that member's time; equal members divide it by the
+    member count).  This is the single number a sub-master reports
+    upward so the root can price a whole group as one Eq. 1 device.
+
+    Raises:
+        ValueError: on an empty group or a non-positive member time
+            (a zero time would divide by zero AND claim infinite
+            capacity — a probe that fast is a bug, not a device).
+    """
+    ts = [float(t) for t in times]
+    if not ts:
+        raise ValueError("group_aggregate_time needs at least one member")
+    if any(t <= 0.0 for t in ts):
+        raise ValueError(f"member probe times must be positive, got {ts}")
+    return 1.0 / sum(1.0 / t for t in ts)
+
+
+def group_capacity(
+    times: Sequence[float], bandwidths: Sequence[Optional[float]]
+) -> Tuple[float, Optional[float]]:
+    """A group's (aggregate probe time, internal bandwidth) as ONE
+    Eq. 1 device: compute rates SUM (``group_aggregate_time``), while
+    the internal bandwidth is the MIN of the members' finite link
+    speeds — a chain is as fast as its narrowest hop, and the root
+    folds this into the group's uplink so rows are never priced faster
+    than the group can internally redistribute them.  ``None`` entries
+    mean an unmetered (in-proc) link and are skipped; all-``None``
+    yields ``None`` (no finite internal bottleneck to report)."""
+    finite = [float(b) for b in bandwidths if b is not None]
+    return group_aggregate_time(times), (min(finite) if finite else None)
+
+
 def check_plan(plan: LayerPlan, n_units: int, n_devices: int) -> None:
     """Invariants every live plan must satisfy — what the re-partition
     conformance tests assert after an evict/admit: unit counts cover the

@@ -26,10 +26,11 @@ ships back as a ``SlaveError`` (the master re-raises it at the
 matching gather) so a broken backend fails loudly instead of hanging
 the protocol.
 
-``slave_loop`` computes each op on ONE backend (a leaf device).  The
-two-tier hierarchy's sub-master, which computes an op over a whole
-inner cluster, is not ported yet: ``--group-slowdowns`` on the CLI
-below is refused.
+Two serve loops share the grammar: ``slave_loop`` computes each op on
+ONE backend (a leaf device), while ``sub_master_loop`` computes it over
+a whole inner ``HeteroCluster`` — the two-tier hierarchy's middle node,
+a slave upward and a master downward (``--group-slowdowns`` on the
+CLI; see ``core/cluster/hierarchy.py``).
 
 Run as a module, this file IS the TCP slave process — spawned by the
 master on this host, or hand-launched on ANY host that can reach the
@@ -39,7 +40,8 @@ master's listener:
         [--device I] [--slowdown 1.5] [--backend cuda] \
         [--transport tcp|shm] [--wire-dtype fp16] [--wire-codec SPEC] \
         [--heartbeat-s 0.5] \
-        [--auth-env REPRO_CLUSTER_AUTH] [--connect-timeout-s 60]
+        [--auth-env REPRO_CLUSTER_AUTH] [--connect-timeout-s 60] \
+        [--group-slowdowns 1,1 --group-backends cuda,numpy ...]
 
 It connects back to the master's listener (retrying while the master is
 still binding), presents the cluster auth token (read from the env var
@@ -193,12 +195,114 @@ def slave_loop(endpoint, slowdown: float, backend_name: str, device: int):
         endpoint.send(out)
 
 
-def hello_frame(device: int, backend: str, slowdown: float) -> tuple:
+def sub_master_loop(endpoint, cluster, device: int):
+    """The TWO-TIER serve loop: Algorithm 2's grammar toward the root,
+    a full ``HeteroCluster`` master toward the group.  A sub-master is
+    a protocol node that answers the SAME wire ops as ``slave_loop``
+    but computes each one over its inner cluster — per-layer
+    kernel/spatial/batch/auto partitioning, pipelining, and the group's
+    own fault tolerance all live behind this seam, invisible to the
+    root except as capacity changes.
+
+    Op semantics at this tier:
+
+    * ``("probe", kw)`` re-probes every GROUP member and answers the
+      aggregate Eq. 1 time (``plans.group_aggregate_time``: member
+      compute rates sum) — the root prices the whole group as one
+      device, and a member lost inside the group shows up here as a
+      capacity drop the root re-plans on.
+    * ``("conv", ...)`` / ``("bwd", ...)`` run the scheduler's
+      ``group_forward`` / ``group_backward`` over the inner cluster —
+      zero-row slices from the root's batch plan short-circuit, and
+      the bwd answer is (dX rows, the group's FULL summed dW), the
+      term the root's exact all-reduce sums.
+    * ``("sconv", ...)`` / ``("sbwd", ...)`` fall back to the inner
+      MASTER's backend (strip ops don't decompose over batch groups);
+      a hierarchy root plans the batch axis, so these only arrive from
+      legacy callers.
+    * ``"trainOver"`` / EOF shut the inner cluster down and return.
+
+    The weight slot resolves through the same per-op + versioned caches
+    as a leaf slave, so the root's ~24-byte ``WeightRef`` tokens work
+    unchanged one tier down."""
+    from repro_torch.core.backends import strip_conv, strip_conv_vjp
+    from repro_torch.core.cluster.plans import group_aggregate_time
+    from repro_torch.core.cluster.scheduler import group_backward, group_forward
+
+    cached_w = {}
+    wcache = {}
+
+    def ensure_probed():
+        # A root that pins its own probe_times never forwards ("probe",
+        # kw) down here, but the inner planner still needs member times
+        # before its first share split — self-probe once with the stock
+        # admit workload.
+        if cluster.probe_times is None:
+            cluster.probe(
+                image_size=16, in_channels=3, kernel_size=3,
+                num_kernels=8, batch=4, repeats=1,
+            )
+
+    try:
+        while True:
+            try:
+                msg = endpoint.recv()
+            except (EOFError, OSError):
+                return  # root gone: the group follows it down
+            if isinstance(msg, str) and msg == TRAIN_OVER:
+                return
+            op, payload = msg
+            if op == "ping":  # root bandwidth probe: echo, never forwarded
+                endpoint.send(payload)
+                continue
+            try:
+                if op == "probe":
+                    endpoint.send(group_aggregate_time(cluster.probe(**payload)))
+                    continue
+                if op == "conv":
+                    x, w = payload
+                    w = _resolve_weights(w, op, cached_w, wcache)
+                    ensure_probed()
+                    out = group_forward(cluster, x, w)
+                elif op == "bwd":
+                    x, w, g = payload
+                    w = _resolve_weights(w, op, cached_w, wcache)
+                    ensure_probed()
+                    out = group_backward(cluster, x, w, g)
+                elif op == "sconv":
+                    xh, w, pt, pb = payload
+                    w = _resolve_weights(w, op, cached_w, wcache)
+                    out = strip_conv(cluster._master_backend, xh, w, pt, pb)
+                elif op == "sbwd":
+                    xh, w, g, pt, pb = payload
+                    w = _resolve_weights(w, op, cached_w, wcache)
+                    out = strip_conv_vjp(
+                        cluster._master_backend, xh, w, g, pt, pb
+                    )
+                else:  # pragma: no cover
+                    raise ValueError(f"unknown op {op}")
+            except Exception:
+                endpoint.send(SlaveError(device, traceback.format_exc()))
+                continue
+            endpoint.send(out)
+    finally:
+        cluster.shutdown()
+
+
+def hello_frame(
+    device: int, backend: str, slowdown: float, extra: dict = None
+) -> tuple:
     """The join handshake: requested device slot (-1 = let the master
     assign one) plus the metadata the master records for membership —
     what an externally-launched slave brings that a spawned one was
-    configured with."""
-    return ("hello", device, {"backend": backend, "slowdown": slowdown})
+    configured with.  ``extra`` extends the open meta dict without
+    touching the grammar: a sub-master adds ``{"group": {"size": n,
+    "bandwidth_mbps": min_internal}}`` so the root can fold the group's
+    internal bottleneck into its uplink pricing."""
+    meta = {"backend": backend, "slowdown": slowdown}
+    if extra:
+        meta.update(extra)
+    return ("hello", device, meta)
 
 
 def parse_hello(frame) -> Tuple[int, dict]:
@@ -255,18 +359,28 @@ def main(argv=None):
                     help="keep retrying the connect for this long — a "
                          "hand-launched slave may legally start before "
                          "the master binds its listener")
+    # -- sub-master mode: this process is a whole GROUP -------------------
     ap.add_argument("--group-slowdowns", default=None,
-                    help="sub-master mode of the two-tier hierarchy: not "
-                         "ported yet, refused")
+                    help="comma-separated slowdowns of the group's devices "
+                         "(first = this sub-master's own compute).  Setting "
+                         "this turns the process into a SUB-MASTER: a slave "
+                         "to the root on the wire above, a full "
+                         "HeteroCluster master to an inner in-proc group")
+    ap.add_argument("--group-backends", default=None,
+                    help="comma-separated backends of the group's devices "
+                         "(default: cuda for all, the card)")
+    ap.add_argument("--group-partition", default="auto",
+                    help="the INNER per-layer partition axis "
+                         "(kernel|spatial|batch|auto)")
+    ap.add_argument("--group-microbatches", type=int, default=4)
+    ap.add_argument("--group-no-pipeline", action="store_true",
+                    help="disable the inner cluster's microbatch pipeline")
+    ap.add_argument("--group-bandwidth-mbps", type=float, default=None,
+                    help="emulated per-link bandwidth INSIDE the group")
+    ap.add_argument("--group-nic-mbps", type=float, default=None,
+                    help="emulated shared NIC for the sub-master's own "
+                         "in-proc links (see transport.SharedNIC)")
     args = ap.parse_args(argv)
-    if args.group_slowdowns:
-        # core/cluster/hierarchy.py (the two-tier composition) has no
-        # counterpart in this package yet: refuse loudly rather than
-        # serve as a plain leaf under a root that expects a group.
-        raise SystemExit(
-            "hierarchy is not ported yet: --group-slowdowns (a sub-master "
-            "process) needs core/cluster/hierarchy.py"
-        )
     from repro_torch.core.backends import get_backend
 
     get_backend(args.backend)  # no card for ``cuda``: raise before joining
@@ -282,9 +396,36 @@ def main(argv=None):
         wire_codec=WireCodec.from_spec(args.wire_codec, args.wire_dtype),
     )
     code = 0
+    inner = None
     try:
+        extra = None
+        if args.group_slowdowns:
+            # Lazy on purpose: hierarchy -> cluster pulls the full
+            # master-side stack; plain leaf slaves stay numpy-light at
+            # import time.
+            from repro_torch.core.cluster.hierarchy import (
+                GroupSpec,
+                build_group_cluster,
+                group_hello_meta,
+            )
+
+            sds = [float(s) for s in args.group_slowdowns.split(",")]
+            bks = (
+                args.group_backends.split(",")
+                if args.group_backends else None
+            )
+            inner = build_group_cluster(GroupSpec(
+                slowdowns=sds,
+                backends=bks,
+                partition=args.group_partition,
+                pipeline=not args.group_no_pipeline,
+                microbatches=args.group_microbatches,
+                bandwidth_mbps=args.group_bandwidth_mbps,
+                nic_mbps=args.group_nic_mbps,
+            ))
+            extra = {"group": group_hello_meta(inner)}
         endpoint.send(
-            hello_frame(args.device, args.backend, args.slowdown)
+            hello_frame(args.device, args.backend, args.slowdown, extra)
         )
         reply = endpoint.recv()
         if (
@@ -295,11 +436,16 @@ def main(argv=None):
         device = int(reply[1])
         if args.heartbeat_s > 0:
             endpoint.start_heartbeat(args.heartbeat_s)
-        slave_loop(endpoint, args.slowdown, args.backend, device)
+        if inner is not None:
+            sub_master_loop(endpoint, inner, device)  # shuts inner down
+        else:
+            slave_loop(endpoint, args.slowdown, args.backend, device)
     except Exception:  # pragma: no cover - surfaced via the exit code
         traceback.print_exc()
         code = 1
     finally:
+        if inner is not None:
+            inner.shutdown()  # idempotent; normally done by the loop
         endpoint.close()
         # _exit, not exit: a backend with native runtime threads (a CUDA
         # context) must never hang CPython finalization; a slave has

@@ -168,6 +168,41 @@ def conv_backward(
     return np.concatenate(dxs, axis=0), dw_total
 
 
+def group_forward(cluster, x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """One tier-2 forward: what a sub-master computes when the root
+    ships it a ``("conv", (x, w))`` batch-row slice — the inner
+    cluster's full (pipelined, per-layer-partitioned) ``conv_forward``,
+    guarded for the degenerate slices a two-level batch plan legally
+    produces.  A zero-row slice (this group earned no rows of the slab)
+    or a zero-kernel layer never touches the inner planner — batch
+    plans require at least one row — and returns the exact
+    correctly-shaped zero-size result instead."""
+    x = np.asarray(x, np.float32)
+    if x.shape[0] == 0 or w.shape[-1] == 0:
+        return np.zeros(x.shape[:3] + (w.shape[-1],), np.float32)
+    return conv_forward(cluster, x, w)
+
+
+def group_backward(
+    cluster, x: np.ndarray, w: np.ndarray, g: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One tier-2 backward: the sub-master's answer to ``("bwd",
+    (x, w, g))`` — the inner cluster's distributed VJP over the group's
+    batch rows, returning (dX over those rows, the FULL dW summed over
+    the group's members).  The root sums these per-group full dWs over
+    disjoint row sets: the same exact all-reduce the flat batch axis
+    proved, just with groups as the members.  Zero-row / zero-kernel
+    slices short-circuit to zero arrays (a zero dW contribution is the
+    correct term for a group holding no rows)."""
+    x = np.asarray(x, np.float32)
+    if x.shape[0] == 0 or w.shape[-1] == 0:
+        return (
+            np.zeros(x.shape, np.float32),
+            np.zeros(w.shape, np.float32),
+        )
+    return conv_backward(cluster, x, w, np.asarray(g, np.float32))
+
+
 def conv_forward_chain(
     cluster,
     x: np.ndarray,

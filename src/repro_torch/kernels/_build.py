@@ -10,15 +10,19 @@ It is bound through ``ctypes``: pointers come from ``tensor.data_ptr()``
 and the stream from ``torch.cuda.current_stream().cuda_stream``.
 
 The first conv runs at once on every in-process slave thread (the
-cluster's ``probe()``), so each library's build is serialised by its own
-lock (different sources still build side by side), and the library is
-installed by an atomic rename so that concurrent slave processes never
-load a half-written file.  Nothing here runs at import:
+cluster's ``probe()``), and slave or sub-master processes that start
+together reach it at once too, so each library's build is serialised by
+its own lock, a thread lock within a process and a file lock
+(``<name>.lock`` beside the libraries) across processes: one compiles,
+the others wait and load its library (different sources still build
+side by side).  The library is installed by an atomic rename, so no
+process ever loads a half-written file.  Nothing here runs at import:
 the CPU tests import every module, and this host may have no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -108,6 +112,39 @@ def _nvcc() -> str:
     )
 
 
+def _compile_once(src: Path, so: Path, log: Path):
+    """Compile ``src`` into ``so`` unless it is there already, writing
+    ptxas's report to ``log``, under the library's file lock
+    (``so``'s directory, ``<source>.lock``): of processes that arrive
+    together one compiles, and the others wait and find its library.
+    Returns ``(build_s, cache_hit)``."""
+    with open(so.parent / f"{src.stem}.lock", "w") as lock:
+        # released on close, and by the kernel if this process dies
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return 0.0, True
+        return _compile(src, so, log), False
+
+
+def _compile(src: Path, so: Path, log: Path) -> float:
+    """Run nvcc on ``src``, install ``so`` by an atomic rename and
+    return nvcc's seconds."""
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed building {src.name} (rc={proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    log.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return build_s
+
+
 def build(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` (once per source hash) and load it.
 
@@ -123,21 +160,7 @@ def build(name: str) -> BuiltLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}_{digest}.so"
         log = so.with_suffix(".ptxas.txt")
-        build_s, hit = 0.0, so.exists()
-        if not hit:
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_s = time.perf_counter() - t0
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed building {src.name} (rc={proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
+        build_s, hit = _compile_once(src, so, log)
         lib = ctypes.CDLL(str(so))
         for fn, (argtypes, restype) in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes

@@ -33,8 +33,21 @@ cross-batch ``ServeChain`` pipeline:
 default: the hand-written kernels on the card) or ``cpu``
 (``torch:cpu``, the plain PyTorch conv, and the stages on the CPU).
 ``--device cuda`` on a host without a card is an error, never a CPU
-run.  The two-tier topology of the JAX CLI (``--groups``) waits for the
-port of ``core/cluster/hierarchy.py`` and is refused.
+run.
+
+``--groups GxM`` trains over the two-tier hierarchy
+(``core/cluster/hierarchy.py``): a root (device 0) over G sub-master
+groups of M devices each.  The root splits each batch's samples across
+the groups by their aggregate Eq. 1 capacity and sums their full dW;
+each group re-partitions its rows on ``--group-partition``.
+``--slowdowns`` and ``--backends`` give the root and then the G*M group
+devices in order, or the root alone (the group devices then run at
+slowdown 1 on ``--device``'s backend).  With ``--transport tcp`` each
+sub-master is an OS process with its group inside it as threads:
+
+    PYTHONPATH=src python -m repro_torch.launch.hetero --train-pipeline \
+        --groups 2x2 --backends cuda,cuda,numpy,cuda,numpy \
+        --group-partition kernel --c1 500 --c2 1500 --batch 32 --steps 3
 
 Training draws its params from ``init_cnn`` with a ``torch.Generator``
 seeded 0 and its images from one seeded 1 (``train_inputs``); they
@@ -66,12 +79,6 @@ from repro_torch.models.cnn import (
     make_cluster_train_step,
     make_cnn_config,
 )
-
-_GROUPS_LATER = (
-    "--groups (the two-tier hierarchy) needs core/cluster/hierarchy.py, "
-    "which is not ported yet; run a flat cluster"
-)
-
 
 # the conv backend each device runs when ``backends`` names none
 DEVICE_BACKENDS = {"cuda": "cuda", "cpu": "torch:cpu"}
@@ -158,6 +165,9 @@ def run_hetero(
     listen_host: str = "127.0.0.1",
     listen_port: int = 0,
     heartbeat_s=None,
+    groups=None,
+    group_partition: str = "auto",
+    master_nic_mbps=None,
 ):
     """``steps`` training steps of the paper's CNN over the cluster, all
     on the same batch (``train_inputs``).  With ``train_pipeline`` the
@@ -165,22 +175,67 @@ def run_hetero(
     autograd step with the cluster as its conv (``make_distributed_conv``),
     microbatched when ``pipeline``.
 
+    ``groups`` (a ``"GxM"`` topology) trains over a
+    ``HierarchicalCluster`` instead: device 0 is the root, the batch
+    axis splits samples across the groups, and each group partitions
+    its rows on ``group_partition``.  ``slowdowns`` and ``backends``
+    then carry the root and the G*M group devices, or the root alone;
+    group devices without a backend take ``device``'s.
+
     Returns ``(rec, history)``: the JSON-ready record (losses, wall
-    time, Eq. 1 probe times, the timing breakdown and comp-aware duty)
-    and the params after each step, in order."""
-    if backends is None:
-        backends = [DEVICE_BACKENDS[device]] * len(slowdowns)
+    time, Eq. 1 probe times, the timing breakdown and comp-aware duty;
+    with ``groups``, each in-process group's inner shares) and the
+    params after each step, in order."""
     cfg = make_cnn_config(c1, c2)
-    cluster = HeteroCluster(
-        slowdowns, backends,
-        pipeline=pipeline or train_pipeline, microbatches=microbatches,
-        partition=partition, wire_dtype=wire_dtype,
-        wire_codec=wire_codec, weight_cache=weight_cache,
-        bandwidth_mbps=bandwidth_mbps, transport=transport,
-        expected_slaves=expected_slaves,
-        listen_host=listen_host, listen_port=listen_port,
-        heartbeat_s=heartbeat_s,
-    )
+    if groups is not None:
+        from repro_torch.core.cluster.hierarchy import (
+            HierarchicalCluster,
+            parse_groups,
+        )
+
+        if expected_slaves is not None:
+            raise SystemExit(
+                "--groups spawns its own sub-masters; --expected-slaves "
+                "(hand-launched joins) is a flat-cluster feature"
+            )
+        n_devices = 1 + sum(g.size for g in parse_groups(groups))
+        if backends is None or len(backends) == 1:
+            # the group devices take --device's backend, never the
+            # hierarchy's own default
+            root = backends[0] if backends else DEVICE_BACKENDS[device]
+            backends = [root] + [DEVICE_BACKENDS[device]] * (n_devices - 1)
+        gspecs = parse_groups(
+            groups,
+            slowdowns=slowdowns[1:] if len(slowdowns) > 1 else None,
+            backends=backends[1:],
+            partition=group_partition,
+            pipeline=pipeline or train_pipeline,
+            microbatches=microbatches,
+        )
+        cluster = HierarchicalCluster(
+            gspecs,
+            master_slowdown=slowdowns[0],
+            master_backend=backends[0],
+            pipeline=pipeline or train_pipeline, microbatches=microbatches,
+            wire_dtype=wire_dtype, wire_codec=wire_codec,
+            weight_cache=weight_cache, bandwidth_mbps=bandwidth_mbps,
+            master_nic_mbps=master_nic_mbps, transport=transport,
+            heartbeat_s=heartbeat_s,
+        )
+        partition = "batch"  # the root's inter-group axis, by construction
+    else:
+        if backends is None:
+            backends = [DEVICE_BACKENDS[device]] * len(slowdowns)
+        cluster = HeteroCluster(
+            slowdowns, backends,
+            pipeline=pipeline or train_pipeline, microbatches=microbatches,
+            partition=partition, wire_dtype=wire_dtype,
+            wire_codec=wire_codec, weight_cache=weight_cache,
+            bandwidth_mbps=bandwidth_mbps, transport=transport,
+            expected_slaves=expected_slaves,
+            listen_host=listen_host, listen_port=listen_port,
+            heartbeat_s=heartbeat_s, master_nic_mbps=master_nic_mbps,
+        )
     try:
         probe = cluster.probe(
             image_size=cfg.image_size, in_channels=cfg.image_channels,
@@ -189,13 +244,23 @@ def run_hetero(
         shares = workload_shares(probe)
         print(f"devices: slowdowns={list(cluster.slowdowns)} "
               f"backends={cluster.backends} transport={transport} "
-              f"master stages on {device}")
+              f"master stages on {device}"
+              + (f" topology={groups} (groups plan rows internally on "
+                 f"'{group_partition}')" if groups else ""))
         print(f"probe times: {np.round(probe, 4).tolist()}")
         if transport in ("tcp", "shm"):
             print(f"measured link bandwidth (Mbps): "
                   f"{[None if b is None else round(b, 1) for b in cluster.measured_bandwidths]}")
         print(f"Eq.1 shares: {np.round(shares, 3).tolist()} -> "
               f"c2 kernels {cluster.shares_for(c2).tolist()}")
+        # in-process groups only: tcp/shm groups live inside their
+        # sub-master processes
+        group_shares = [
+            [float(s) for s in workload_shares(g.probe_times)]
+            for g in getattr(cluster, "group_clusters", [])
+        ] or None
+        if group_shares:
+            print(f"group shares: {np.round(group_shares, 3).tolist()}")
 
         params, imgs, labels = train_inputs(cfg, batch, device)
         if train_pipeline:
@@ -233,6 +298,10 @@ def run_hetero(
             ),
             "device": device,
             "transport": transport,
+            "topology": groups or "flat",
+            "group_partition": group_partition if groups else None,
+            "group_shares": group_shares,
+            "master_nic_mbps": master_nic_mbps,
             "measured_bandwidth_mbps": list(cluster.measured_bandwidths),
             "microbatches": microbatches if (pipeline or train_pipeline) else 1,
             "partition": partition,
@@ -403,8 +472,12 @@ def _clean_exit(code: int) -> None:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--slowdowns", default="1.0,1.5,3.0",
-                    help="comma list; device 0 is the master")
+    ap.add_argument("--slowdowns", default=None,
+                    help="comma list; device 0 is the master (default "
+                         "1.0,1.5,3.0 flat; with --groups GxM pass 1 + G*M "
+                         "entries — root then group devices chunked M per "
+                         "group — or just the root, group devices default "
+                         "to 1.0)")
     ap.add_argument("--backends", default=None,
                     help="comma list of conv backends per device "
                          "(cuda|torch[:cpu|:cuda]|numpy|sim); default: "
@@ -426,8 +499,19 @@ def main():
                     help="pipeline the FULL train step (fwd+bwd of every "
                          "conv layer, master-only stages overlapped)")
     ap.add_argument("--groups", default=None, metavar="GxM",
-                    help="two-tier training topology of the JAX CLI: not "
-                         "ported yet")
+                    help="two-tier topology: G sub-master groups of M "
+                         "devices each (e.g. 2x3); the root plans disjoint "
+                         "batch rows across groups (exact dW all-reduce), "
+                         "each group re-partitions its rows internally on "
+                         "--group-partition.  With --transport tcp each "
+                         "sub-master is a real OS process")
+    ap.add_argument("--group-partition", default="auto",
+                    choices=["kernel", "spatial", "batch", "auto"],
+                    help="conv split axis INSIDE each group (the root's "
+                         "inter-group axis is always batch)")
+    ap.add_argument("--master-nic-mbps", type=float, default=None,
+                    help="emulate ONE shared master port of this speed "
+                         "serialized across all root links (inproc only)")
     ap.add_argument("--partition", default="kernel",
                     choices=["kernel", "spatial", "batch", "auto"],
                     help="conv split axis: output channels (kernel, the "
@@ -476,15 +560,16 @@ def main():
     ap.add_argument("--out", default=None, help="append the record as JSONL")
     args = ap.parse_args()
 
-    if args.groups:
-        raise SystemExit(_GROUPS_LATER)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
-            "--device cuda (the default) needs a CUDA card and "
-            "torch.cuda.is_available() is False; pass --device cpu to "
+            "no CUDA device: --device cuda (the default) needs a CUDA card "
+            "and torch.cuda.is_available() is False; pass --device cpu to "
             "run the plain PyTorch conv on the CPU"
         )
-    slowdowns = [float(s) for s in args.slowdowns.split(",")]
+    # the flat default topology makes no sense under --groups: there the
+    # default is "just the root", group devices filling in at 1.0
+    slowdowns_s = args.slowdowns or ("1.0" if args.groups else "1.0,1.5,3.0")
+    slowdowns = [float(s) for s in slowdowns_s.split(",")]
     backends = args.backends.split(",") if args.backends else None
     transport = "tcp" if args.expected_slaves is not None else args.transport
     common = dict(
@@ -507,12 +592,16 @@ def main():
             rec, _ = run_hetero(
                 slowdowns, backends, pipeline=args.pipeline,
                 train_pipeline=args.train_pipeline, batch=args.batch,
-                steps=args.steps, **common,
+                steps=args.steps, groups=args.groups,
+                group_partition=args.group_partition,
+                master_nic_mbps=args.master_nic_mbps, **common,
             )
             ok = bool(np.isfinite(rec["losses"]).all())
         if args.out:
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+    except SystemExit:
+        raise  # config validation: no cluster yet
     except BaseException:
         traceback.print_exc()
         _clean_exit(1)

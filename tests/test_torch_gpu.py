@@ -361,6 +361,54 @@ def test_cuda_backend_backward_through_the_cluster(dev, partition):
     np.testing.assert_allclose(dw, dw_want, atol=1e-3, rtol=1e-5)
 
 
+def test_cuda_hierarchy_matches_float64_and_reruns_bit_identical(dev):
+    """An in-process ``HierarchicalCluster("2x2")`` whose five devices all
+    take the default ``cuda`` backend, at tests/test_hierarchy.py's
+    shapes: the two-tier VJP of conv -> ReLU -> conv (K1, K2, K3 in every
+    group) against float64 ``conv2d_ref`` autograd at the hierarchy
+    tests' tolerance, and a second step on the same fixed plans gives
+    the same bits (K2 and K3 sum in a fixed order)."""
+    from repro_torch.core.cluster.hierarchy import HierarchicalCluster
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(8, 8, 8, 3)).astype(np.float32)
+    w1 = rng.normal(size=(3, 3, 3, 6)).astype(np.float32)
+    w2 = rng.normal(size=(3, 3, 6, 9)).astype(np.float32)
+    g = rng.normal(size=(8, 8, 8, 9)).astype(np.float32)
+    tx, t1, t2 = (torch.from_numpy(a).to(dev, torch.float64).requires_grad_()
+                  for a in (x, w1, w2))
+    y2 = conv2d_ref(torch.relu(conv2d_ref(tx, t1)), t2)
+    want = torch.autograd.grad((y2 * torch.from_numpy(g).to(dev, torch.float64)).sum(),
+                               (tx, t1, t2))
+    c = HierarchicalCluster("2x2", microbatches=2, comp_aware=False)
+    before = (conv2d.launches, conv2d_dx.launches, conv2d_dw.launches)
+    try:
+        assert c.backends == ["cuda"] * 3
+        c.probe_times = [1.0, 1.0, 1.0]
+        for inner in c.group_clusters:
+            assert inner.backends == ["cuda", "cuda"]
+            inner.comp_aware = False
+            inner.probe_times = [1.0, 1.0]
+
+        def between(y):
+            mask = (y > 0).astype(np.float32)
+            return np.maximum(y, 0.0), lambda gz: gz * mask
+
+        slices = c.microbatch_slices(x.shape[0])
+        runs = [c.conv_train_chain(x, [w1, w2], [between, None],
+                                   lambda z, i: (None, g[slices[i]]))
+                for _ in range(2)]
+    finally:
+        c.shutdown()
+    after = (conv2d.launches, conv2d_dx.launches, conv2d_dw.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    for res in runs:
+        for got, ref in zip((res.dx, res.dw[0], res.dw[1]), want):
+            np.testing.assert_allclose(got, ref.cpu().numpy(), rtol=1e-4, atol=1e-3)
+    for a, b in zip((runs[0].dx, *runs[0].dw), (runs[1].dx, *runs[1].dw)):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # K4 (flash attention) and K5 (SSD scan), and the model zoo's serving path
 

@@ -54,6 +54,8 @@ def test_entry_points_load_no_jax_and_no_repro_at_run_time():
         "import repro_torch.launch.serve, repro_torch.serve.engine\n"
         "import repro_torch.models.registry, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attn, repro_torch.kernels.ssd\n"
+        "import repro_torch.core.cluster.hierarchy, repro_torch.core.costmodel\n"
+        "import repro_torch.core.simulator, repro_torch.core.master_slave\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

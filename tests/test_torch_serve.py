@@ -8,9 +8,9 @@
   conv layers and a 32-wide head: only summation orders differ).
 - Every partition axis of the port's cluster matches its single-device
   chain, forward (serving) and backward (the protocol's VJP ops).
-- The port's CLI serves on the CPU when asked, refuses the two-tier
-  ``--groups`` topology, and never falls back to the CPU when asked for
-  the card.
+- The port's CLI serves on the CPU when asked, trains the two-tier
+  ``--groups`` topology on the CPU when asked, and never falls back to
+  the CPU when asked for the card; the slave CLI joins as a sub-master.
 """
 import os
 import subprocess
@@ -202,11 +202,18 @@ def test_cli_serves_on_cpu():
 
 
 def test_cli_refuses_training_modes():
-    """The two-tier training topology waits for the hierarchy's port;
-    the flat training modes run (tests/test_torch_train.py)."""
-    r = _cli("--train-pipeline", "--device", "cpu", "--groups", "2x2")
-    assert r.returncode != 0 and "hierarchy.py" in r.stderr
-    assert "steps in" not in r.stdout
+    """The two-tier training topology trains on the CPU when asked (the
+    flat training modes: tests/test_torch_train.py); on the card without
+    one it refuses before any sub-master starts."""
+    r = _cli("--train-pipeline", "--device", "cpu", "--groups", "2x2", "--c1", "4",
+             "--c2", "8", "--batch", "4", "--steps", "2")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "topology=2x2" in r.stdout and "2 steps in" in r.stdout
+    assert "losses=[2.632, 1.6797]" in r.stdout  # the flat CLI's losses
+    if not torch.cuda.is_available():
+        r = _cli("--train-pipeline", "--groups", "2x2", "--c1", "4", "--c2", "8")
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+        assert "devices:" not in r.stdout
 
 
 def test_cli_cuda_without_a_card_is_an_error():
@@ -262,8 +269,34 @@ def test_default_backend_is_the_card_and_refuses_without_one(entry):
 
 
 def test_slave_cli_refuses_sub_master_mode():
-    r = _slave("--backend", "numpy", "--group-slowdowns", "1,1")
-    assert r.returncode != 0 and "hierarchy is not ported yet" in r.stderr
+    """The slave CLI with ``--group-*`` flags joins a waiting master as a
+    sub-master of a two-device group and answers its probe with the
+    group's aggregate Eq. 1 time."""
+    c = HeteroCluster([1.0], backends=["numpy"], transport="tcp")
+    slave = None
+    try:
+        c.probe_times = [1.0]
+        host, port = c.listen_address
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   REPRO_CLUSTER_AUTH=c.auth_token_hex)
+        slave = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.core.cluster.protocol",
+             "--host", host, "--port", str(port), "--backend", "numpy",
+             "--group-slowdowns", "1,1", "--group-backends", "numpy,numpy"],
+            env=env,
+        )
+        dev = c.admit(spawn=False, timeout_s=60.0)
+        assert c.hello_meta[dev]["group"] == {"size": 2, "bandwidth_mbps": None}
+        assert c.backends == ["numpy", "numpy"]
+        assert len(c.probe_times) == 2 and c.probe_times[1] > 0
+        x = np.random.default_rng(0).normal(size=(2, 8, 8, 3)).astype(np.float32)
+        w = np.random.default_rng(1).normal(size=(3, 3, 3, 9)).astype(np.float32)
+        np.testing.assert_allclose(c.conv_forward(x, w), numpy_conv(x, w),
+                                   atol=ATOL, rtol=0)
+    finally:
+        c.shutdown()
+        if slave is not None:
+            assert slave.wait(timeout=30) == 0
 
 
 def test_torch_backend_conv_and_vjp_match_numpy():

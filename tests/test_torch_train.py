@@ -14,7 +14,7 @@ packages:
 - the ``--pipeline`` step (``make_distributed_conv``) gives the JAX
   one's with a numpy master (atol 1e-4);
 - the port's CLI trains on the CPU when asked, refuses the card without
-  one, and still refuses ``--groups``.
+  one (the two-tier ``--groups`` run: tests/test_torch_hierarchy.py).
 """
 import os
 import re
