@@ -55,9 +55,13 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    (B 4, H 25 over KV 5, S = T = 2048, D 64, window 1024), a ragged
    S = 2047, one query against T = 1024, and in bf16 D 20 and hymba's
    shape through a row stride that is not 16-byte aligned (the tensor-core
-   kernel's scalar-load path); with median times of the
-   kernel, the plain version and ``F.scaled_dot_product_attention`` on
-   the same boolean mask (a yardstick the port never calls);
+   kernel's scalar-load path); the model zoo's shapes: head_dim 128
+   over GQA 32/8 under a 4096 window (llava), non-causal S = T = 1500
+   (whisper's encoder), non-causal S < T (its cross-attention) and S > T
+   (a prompt longer than the frames), in fp32 and bf16; with median
+   times of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` on the same boolean mask (a
+   yardstick the port never calls);
 11. kernel_ssd — the SSD scan K5 (three kernels: ``ssd_fwd_kernel``,
    each 64-step tile's local state; ``ssd_prefix_kernel``, the state
    entering each tile; ``ssd_out_kernel``, y) against
@@ -69,7 +73,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the same bits, and its tile passes' launch grids from a profiler
    trace, each more blocks than B * H (no single PyTorch call computes
    SSD: no yardstick);
-12. lm_serve — the port's ``launch/serve.py`` path (``load`` +
+12. lm_serve (``serve_lm``) — the port's ``launch/serve.py`` path (``load`` +
    ``ServeEngine.generate``) on ``hymba-1.5b --full`` in its own bf16:
    batch 4, prompt 2048, 16 new tokens, greedy, inside a profiler trace.
    K4 and K5 each launched once per layer (32) and each wrapper's count
@@ -103,10 +107,22 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    (this run's, or lm_serve's) can lose every kernel record, which
    failed phase 11's 3-call grid trace when this phase ran after phase
    9; the phase records how many of 3 K1 launches a short trace sees
-   just before and just after it.
+   just before and just after it;
+16. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
+   width in its own bf16, every earlier phase's tensors and the
+   allocator's cache freed first: moonshot-v1-16b-a3b (48 layers, 64
+   experts top-6, 56.1 GB of weights; K4 48 times a prefill),
+   whisper-medium (24 + 24 layers, 1,500 frames; 72: encoder, decoder
+   self- and cross-attention) and llava-next-mistral-7b (32 layers,
+   2,880 patch positions in a 4,608-token prompt, window 4096; 32):
+   the traced and untraced runs, the prefill's K4 launches and shapes,
+   no launch in decode; ``lm_check`` in fp32 (whisper at full depth,
+   moonshot cut to 2 layers and llava to 4 to fit fp32 on the card);
+   K4 at every shape the runs gave it.
 
 Every wrapper's launch count is set to 0 just before a main-path run
-(serve, train, lm_serve, the in-process hierarchy) and read just after.
+(serve, train, lm_serve, the in-process hierarchy, each lm_zoo run) and
+read just after.
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -116,6 +132,7 @@ result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import re
 import statistics
@@ -153,6 +170,15 @@ SEED = 0
 # lm_check: the kernel path's logits against the plain path's, max |diff|
 # over max |logit| (fp32 throughout; see PERF.md for the choice)
 LM_RTOL = 1e-3
+# lm_zoo: (arch, batch, prompt, new tokens, K4 launches per prefill, the
+# layers lm_check keeps in fp32 (None: all)).  whisper's prompt is 224
+# tokens against 1,500 frames: 24 encoder, 24 decoder self- and 24 cross-
+# attentions; llava's 4,608 = 2,880 patch positions + 1,728 text tokens
+ZOO = (
+    ("moonshot-v1-16b-a3b", 4, 2048, 16, 48, 2),
+    ("whisper-medium", 4, 224, 16, 72, None),
+    ("llava-next-mistral-7b", 4, 4608, 16, 32, 4),
+)
 # K5 reruns at hymba's prefill shape, each held bit-identical to the first
 SSD_RERUNS = 20
 # the wrappers' kernels by trace symbol: the first counts launches (K2's
@@ -770,8 +796,11 @@ def check_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype, *, label, phas
     fn = ks.wrapper["flash_attention"]
     got = fn(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
-                               window=window)
+    # one batch row at a time: llava's (32, 4608, 4608) scores are 5.4 GB
+    # in float64 for one row
+    want = torch.cat([flash_attention_ref(q[i : i + 1].double(), k[i : i + 1].double(),
+                                          v[i : i + 1].double(), causal=causal,
+                                          window=window) for i in range(b)])
     if tuple(got.shape) != (b, h, s, d) or got.dtype != dtype:
         fail(f"flash_attention {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
     if not torch.isfinite(got).all():
@@ -873,39 +902,45 @@ def check_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype, *, label, phase, width=No
     }
 
 
-def lm_check(dev, arch, batch, prompt, new, seed):
-    """The model at full width in fp32, the kernel path (K4, K5) against
+def lm_check(dev, arch, batch, prompt, new, seed, layers=None):
+    """The model at full width in fp32 (its first ``layers`` layers, or
+    all), the kernel path (K4, and K5 where the model has an SSM) against
     the plain path (their plain versions passed as ``attention_fn`` and
-    ``ssd_fn``) on the same weights: the prefill's logits and cache, then
-    ``new`` decode steps teacher-forced on the kernel path's greedy
+    ``ssd_fn``) on the same weights and batch (``make_batch``: tokens,
+    and patches or frames): the prefill's logits and every cache entry,
+    then ``new`` decode steps teacher-forced on the kernel path's greedy
     tokens.  Returns the record; fails beyond ``LM_RTOL``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref
+    from repro_torch.launch.serve import make_batch
     from repro_torch.models.registry import build_model
 
-    cfg = get_config(arch).with_(dtype="float32", param_dtype="float32")
+    cfg = get_config(arch)
+    cut = {} if layers is None else {"num_layers": layers}
+    cfg = cfg.with_(dtype="float32", param_dtype="float32", **cut)
     api = build_model(cfg)
     params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
-    plain = {"attention_fn": flash_attention_ref, "ssd_fn": ssd_chunked_ref}
+    inputs = make_batch(cfg, seed=seed, batch=batch, prompt_len=prompt, device=dev)
+    plain = {"attention_fn": flash_attention_ref}
+    if cfg.ssm is not None:
+        plain["ssd_fn"] = ssd_chunked_ref
 
     def rel(got, want):
         return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        lk, ck = api.prefill(params, {"tokens": tokens}, cache_len=prompt + new)
+        lk, ck = api.prefill(params, inputs, cache_len=prompt + new)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        lp, cp = api.prefill(params, {"tokens": tokens}, cache_len=prompt + new, **plain)
+        lp, cp = api.prefill(params, inputs, cache_len=prompt + new, **plain)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if not torch.isfinite(lk).all():
-            fail("lm_check: non-finite prefill logits on the kernel path")
+            fail(f"lm_check {arch}: non-finite prefill logits on the kernel path")
         prefill_rel = rel(lk, lp)
         cache_rel = {key: rel(ck[key].float(), cp[key].float())
-                     for key in ("k", "v", "conv", "ssm")}
+                     for key in sorted(ck) if key != "t"}
         step_rel = []
         nxt = lk.argmax(-1)
         for _ in range(new):
@@ -915,6 +950,7 @@ def lm_check(dev, arch, batch, prompt, new, seed):
             nxt = lk.argmax(-1)
     rec = {"phase": "lm_check", "arch": arch, "dtype": "float32", "batch": batch,
            "prompt_len": prompt, "decode_steps": new,
+           "layers": cfg.num_layers, "depth_cut": layers is not None,
            "prefill_rel_err": prefill_rel, "cache_rel_err": cache_rel,
            "decode_rel_err_by_step": step_rel, "rtol": LM_RTOL,
            "prefill_kernel_s": t1 - t0, "prefill_plain_s": t2 - t1,
@@ -924,6 +960,147 @@ def lm_check(dev, arch, batch, prompt, new, seed):
         fail(f"lm_check: kernel path vs plain path relative err {worst} > {LM_RTOL}: {rec}")
     del params, ck, cp
     return rec
+
+
+def serve_lm(ks, dev, arch, lm_batch, prompt, new, per_prefill, phase):
+    """The port's ``launch/serve.py`` path (``load`` +
+    ``ServeEngine.generate``) on ``arch --full`` in its own dtype, greedy:
+    a run inside a profiler trace, whose launches of K4 and K5 must equal
+    ``per_prefill`` (one prefill) and the trace's counts; the same run
+    untraced (the headline times); then generate's halves called one by
+    one on the same inputs: the prefill with observers as its
+    ``attention_fn`` (and ``ssd_fn``), which record each call's shape
+    and launch ``per_prefill``, and 4 decode steps in a trace of their
+    own, which launch neither kernel.  Returns (the record, K4's shapes,
+    K5's shapes, the trace of the run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import load
+
+    lm_kinds = ("flash_attention", "ssd")
+    engine, lm_inputs = load(arch, full=True, seed=SEED, batch=lm_batch,
+                             prompt_len=prompt, device=dev)
+    api, lm_cfg = engine.api, engine.api.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        tokens = engine.generate(lm_inputs, max_new_tokens=new, timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        lm_counts = read_counts(ks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lm_trace = device_trace(prof, run_s)
+    for kind in lm_kinds:
+        if lm_counts[kind] != per_prefill[kind]:
+            fail(f"{phase} {arch}: {kind} launched {lm_counts[kind]} times, want "
+                 f"{per_prefill[kind]}")
+        if lm_trace["kernels"][kind]["launches"] != lm_counts[kind]:
+            fail(f"{phase} {arch}: the trace holds {lm_trace['kernels'][kind]['launches']} "
+                 f"{kind} launches, the wrapper counted {lm_counts[kind]}")
+    if per_prefill["flash_attention"] == 0:
+        fail(f"{phase} {arch}: K4 was never launched on the main path")
+    if any(lm_counts[k] for k in CONV_KINDS):
+        fail(f"{phase} {arch}: a conv kernel ran on the language model's path: {lm_counts}")
+    if (tuple(tokens.shape) != (lm_batch, new) or int(tokens.min()) < 0
+            or int(tokens.max()) >= lm_cfg.vocab_size):
+        fail(f"{phase} {arch}: tokens {tuple(tokens.shape)} or their range")
+    # the same run again outside the profiler, whose per-launch cost
+    # inflates decode's thousands of small launches: the headline times
+    untraced = {}
+    reset_counts(ks)
+    t_run = time.perf_counter()
+    again = engine.generate(lm_inputs, max_new_tokens=new, timings=untraced)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t_run
+    if read_counts(ks, lm_kinds) != per_prefill:
+        fail(f"{phase} {arch}: the untraced run launched {read_counts(ks)}")
+    attn_shapes, ssd_shapes = collections.Counter(), collections.Counter()
+
+    def observed_attn(q, k, v, *, causal, window):
+        attn_shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                     q.shape[3], causal, window, q.dtype)] += 1
+        return ks.wrapper["flash_attention"](q, k, v, causal=causal, window=window)
+
+    def observed_ssd(x, dt, a, bm, cm, *, chunk):
+        ssd_shapes[tuple(x.shape[:3]) + (bm.shape[2], x.shape[3], bm.shape[3], chunk,
+                                         x.dtype)] += 1
+        return ks.wrapper["ssd"](x, dt, a, bm, cm, chunk=chunk)
+
+    fns = {"attention_fn": observed_attn}
+    if lm_cfg.ssm is not None:
+        fns["ssd_fn"] = observed_ssd
+    traced_steps = 4
+    with torch.inference_mode():
+        reset_counts(ks)
+        logits, cache = api.prefill(engine.params, lm_inputs, cache_len=prompt + new, **fns)
+        prefill_counts = read_counts(ks, lm_kinds)
+        if not torch.isfinite(logits).all():
+            fail(f"{phase} {arch}: non-finite prefill logits")
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as dprof:
+            reset_counts(ks)
+            t_run = time.perf_counter()
+            for _ in range(traced_steps):
+                logits, cache = api.decode_step(engine.params, cache, nxt[:, None])
+                nxt = logits.argmax(-1)
+            torch.cuda.synchronize()
+            decode_traced_s = time.perf_counter() - t_run
+            decode_counts = read_counts(ks, lm_kinds)
+    del cache
+    decode_trace = device_trace(dprof, decode_traced_s)
+    if prefill_counts != per_prefill:
+        fail(f"{phase} {arch}: the prefill launched {prefill_counts}, want {per_prefill}")
+    if any(decode_counts.values()) or any(decode_trace["kernels"][k]["launches"]
+                                          for k in lm_kinds):
+        fail(f"{phase} {arch}: decode launched {decode_counts}")
+    decode_ms = untraced["decode_s"] / untraced["decode_steps"] * 1e3
+    events_per_step = decode_trace["device_events"] / traced_steps
+    rec = {"phase": phase, "arch": arch, "full": True,
+           "dtype": str(lm_cfg.compute_dtype).split(".")[-1],
+           "params_b": sum(t.numel() for t in _leaves(engine.params)) / 1e9,
+           "batch": lm_batch, "prompt_len": prompt, "new_tokens": new,
+           "inputs": {k: list(t.shape) for k, t in lm_inputs.items()},
+           "prefill_s": untraced["prefill_s"], "decode_ms_per_token": decode_ms,
+           "decode_tokens_per_s": lm_batch * 1e3 / decode_ms,
+           "tokens_per_s": lm_batch * new / untraced_s, "run_s": untraced_s,
+           "traced": {"prefill_s": timings["prefill_s"],
+                      "decode_ms_per_token":
+                          timings["decode_s"] / timings["decode_steps"] * 1e3,
+                      "run_s": run_s},
+           "peak_memory_gb": peak_gb, "launches": lm_counts,
+           "prefill_launches": prefill_counts, "decode_launches": decode_counts,
+           "trace": lm_trace,
+           "decode_trace": {"steps": traced_steps,
+                            "device_events_per_step": events_per_step,
+                            "traced_ms_per_step": decode_traced_s / traced_steps * 1e3,
+                            "busy_ms_per_step": decode_trace["busy_ms"] / traced_steps,
+                            "busy_share": decode_trace["busy_share"],
+                            "untraced_us_per_device_event":
+                                decode_ms * 1e3 / events_per_step},
+           "tokens_head": tokens[:2, :8].tolist(),
+           "untraced_tokens_equal": bool(torch.equal(tokens, again))}
+    del engine, lm_inputs, tokens, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, attn_shapes, ssd_shapes, lm_trace
+
+
+def attn_path_shapes(ks, dev, shapes, path):
+    """K4 against its plain version at every shape a main-path run gave
+    it, timed in isolation; each record carries its launch count."""
+    recs = []
+    for (b_, h_, kv_, s_, t_, d_, causal, window, dtype), n in sorted(shapes.items(),
+                                                                     key=str):
+        r = check_attn(ks, dev, b_, h_, kv_, s_, t_, d_, causal, window, dtype,
+                       label=f"{path} x{n}", phase="main_path_shape")
+        r.update(launches=n, path=path)
+        emit(r)
+        recs.append(r)
+    return recs
 
 
 def main() -> int:
@@ -1215,6 +1392,19 @@ def main() -> int:
                     label="D 20", phase="kernel_attn"))
     emit(check_attn(ks, dev, *hymba_attn, True, 1024, torch.bfloat16,
                     label="unaligned row stride", phase="kernel_attn", pad=1))
+    # the model zoo's shapes: head_dim 128 over GQA 32/8 under llava's
+    # 4096 window, whisper's encoder (non-causal S = T = 1500) and its
+    # cross-attention (non-causal S < T), and more queries than keys
+    # without masks (a prompt longer than the encoder's frames)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, causal, window in (
+                ("D 128 GQA 32/8 window 4096", (1, 32, 8, 4608, 4608, 128), True, 4096),
+                ("non-causal S = T = 1500", (4, 16, 16, 1500, 1500, 64), False, None),
+                ("non-causal S < T", (4, 16, 16, 224, 1500, 64), False, None),
+                ("non-causal S > T", (4, 16, 16, 1700, 1500, 64), False, None),
+                ("non-causal S > T, D 128, ragged", (1, 4, 4, 130, 7, 128), False, None)):
+            emit(check_attn(ks, dev, *shape, causal, window, dtype, label=label,
+                            phase="kernel_attn"))
 
     # -- 11. K5 against its plain version ------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -1270,128 +1460,20 @@ def main() -> int:
     del ssd_args, y1, y2, s1, s2
 
     # -- 12. serve hymba-1.5b at full width through the port -----------------
-    from repro_torch.launch.serve import load
-
     arch, lm_batch, prompt, new = "hymba-1.5b", 4, 2048, 16
-    engine, lm_inputs = load(arch, full=True, seed=SEED, batch=lm_batch,
-                             prompt_len=prompt, device=dev)
-    api, lm_cfg = engine.api, engine.api.cfg
-    layers = lm_cfg.num_layers
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    timings = {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        reset_counts(ks)
-        t_run = time.perf_counter()
-        tokens = engine.generate(lm_inputs, max_new_tokens=new, timings=timings)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t_run
-        lm_counts = read_counts(ks)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    lm_trace = device_trace(prof, run_s)
-    for kind in ("flash_attention", "ssd"):
-        if lm_counts[kind] != layers:
-            fail(f"lm_serve: {kind} launched {lm_counts[kind]} times, want {layers}")
-        if lm_trace["kernels"][kind]["launches"] != lm_counts[kind]:
-            fail(f"lm_serve: the trace holds {lm_trace['kernels'][kind]['launches']} "
-                 f"{kind} launches, the wrapper counted {lm_counts[kind]}")
-    if any(lm_counts[k] for k in CONV_KINDS):
-        fail(f"lm_serve: a conv kernel ran on the language model's path: {lm_counts}")
-    if (tuple(tokens.shape) != (lm_batch, new) or int(tokens.min()) < 0
-            or int(tokens.max()) >= lm_cfg.vocab_size):
-        fail(f"lm_serve: tokens {tuple(tokens.shape)} or their range")
-    # the same run again outside the profiler, whose per-launch cost
-    # inflates decode's thousands of small launches: the headline times
-    untraced = {}
-    reset_counts(ks)
-    t_run = time.perf_counter()
-    engine.generate(lm_inputs, max_new_tokens=new, timings=untraced)
-    torch.cuda.synchronize()
-    untraced_s = time.perf_counter() - t_run
-    if read_counts(ks, ("flash_attention", "ssd")) != {"flash_attention": layers,
-                                                      "ssd": layers}:
-        fail(f"lm_serve: the untraced run launched {read_counts(ks)}")
-    # generate's two halves called one by one on the same inputs: the
-    # prefill, with observers passed as the model's attention_fn and ssd_fn
-    # (the shape of each call, then the wrapper), and decode steps in a
-    # trace of their own (their launches and device events per step)
-    attn_shapes, ssd_shapes = collections.Counter(), collections.Counter()
-
-    def observed_attn(q, k, v, *, causal, window):
-        attn_shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
-                     q.shape[3], causal, window, q.dtype)] += 1
-        return ks.wrapper["flash_attention"](q, k, v, causal=causal, window=window)
-
-    def observed_ssd(x, dt, a, bm, cm, *, chunk):
-        ssd_shapes[tuple(x.shape[:3]) + (bm.shape[2], x.shape[3], bm.shape[3], chunk,
-                                         x.dtype)] += 1
-        return ks.wrapper["ssd"](x, dt, a, bm, cm, chunk=chunk)
-
-    traced_steps = 4
-    with torch.inference_mode():
-        reset_counts(ks)
-        logits, cache = api.prefill(engine.params, lm_inputs, cache_len=prompt + new,
-                                    attention_fn=observed_attn, ssd_fn=observed_ssd)
-        prefill_counts = read_counts(ks, ("flash_attention", "ssd"))
-        if not torch.isfinite(logits).all():
-            fail("lm_serve: non-finite prefill logits")
-        nxt = logits.argmax(-1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as dprof:
-            reset_counts(ks)
-            t_run = time.perf_counter()
-            for _ in range(traced_steps):
-                logits, cache = api.decode_step(engine.params, cache, nxt[:, None])
-                nxt = logits.argmax(-1)
-            torch.cuda.synchronize()
-            decode_traced_s = time.perf_counter() - t_run
-            decode_counts = read_counts(ks, ("flash_attention", "ssd"))
-    del cache
-    decode_trace = device_trace(dprof, decode_traced_s)
-    if prefill_counts != {"flash_attention": layers, "ssd": layers}:
-        fail(f"lm_serve: the prefill launched {prefill_counts}, want {layers} each")
-    if any(decode_counts.values()) or any(decode_trace["kernels"][k]["launches"]
-                                          for k in ("flash_attention", "ssd")):
-        fail(f"lm_serve: decode launched {decode_counts}")
-    decode_ms = untraced["decode_s"] / untraced["decode_steps"] * 1e3
-    events_per_step = decode_trace["device_events"] / traced_steps
-    emit({"phase": "lm_serve", "arch": arch, "full": True,
-          "dtype": str(lm_cfg.compute_dtype).split(".")[-1],
-          "params_b": sum(t.numel() for t in _leaves(engine.params)) / 1e9,
-          "batch": lm_batch, "prompt_len": prompt, "new_tokens": new,
-          "prefill_s": untraced["prefill_s"], "decode_ms_per_token": decode_ms,
-          "decode_tokens_per_s": lm_batch * 1e3 / decode_ms,
-          "tokens_per_s": lm_batch * new / untraced_s, "run_s": untraced_s,
-          "traced": {"prefill_s": timings["prefill_s"],
-                     "decode_ms_per_token":
-                         timings["decode_s"] / timings["decode_steps"] * 1e3,
-                     "run_s": run_s},
-          "peak_memory_gb": peak_gb, "launches": lm_counts,
-          "prefill_launches": prefill_counts, "decode_launches": decode_counts,
-          "trace": lm_trace,
-          "decode_trace": {"steps": traced_steps, "device_events_per_step": events_per_step,
-                           "traced_ms_per_step": decode_traced_s / traced_steps * 1e3,
-                           "busy_ms_per_step": decode_trace["busy_ms"] / traced_steps,
-                           "busy_share": decode_trace["busy_share"],
-                           "untraced_us_per_device_event":
-                               decode_ms * 1e3 / events_per_step},
-          "tokens_head": tokens[:2, :8].tolist()})
-    del engine
-    torch.cuda.empty_cache()
+    hymba_layers = 32
+    lm_rec, attn_shapes, ssd_shapes, lm_trace = serve_lm(
+        ks, dev, arch, lm_batch, prompt, new,
+        {"flash_attention": hymba_layers, "ssd": hymba_layers}, "lm_serve")
+    emit(lm_rec)
 
     # -- 13. the kernel path against the plain path, fp32 at full width ------
     emit(lm_check(dev, arch, lm_batch, prompt, new, SEED))
     torch.cuda.empty_cache()
 
     # -- 14. K4 and K5 at every shape the lm_serve run gave them -------------
-    attn_recs, ssd_recs = [], []
-    for (b_, h_, kv_, s_, t_, d_, causal, window, dtype), n in sorted(
-            attn_shapes.items(), key=str):
-        r = check_attn(ks, dev, b_, h_, kv_, s_, t_, d_, causal, window, dtype,
-                       label=f"lm_serve x{n}", phase="main_path_shape")
-        r.update(launches=n, path="lm_serve")
-        emit(r)
-        attn_recs.append(r)
+    attn_recs = attn_path_shapes(ks, dev, attn_shapes, "lm_serve")
+    ssd_recs = []
     for (b_, s_, h_, g_, p_, n_, chunk, dtype), n in sorted(ssd_shapes.items(), key=str):
         r = check_ssd(ks, dev, b_, s_, h_, g_, p_, n_, chunk, dtype,
                       label=f"lm_serve x{n}", phase="main_path_shape")
@@ -1513,7 +1595,24 @@ def main() -> int:
         "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, hier_log.bwd,
                                  "main_path_shape", "hierarchy"),
     }
+    del hier_trained, tcp_trained, trained, params, imgs, labels
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 16. the rest of the model zoo at full width -------------------------
+    zoo_runs = {}
+    for arch, zb, zprompt, znew, k4, check_layers in ZOO:
+        emit({"phase": "lm_zoo", "arch": arch, "event": "start",
+              "allocated_gb_before": torch.cuda.memory_allocated() / 1e9})
+        rec, z_attn, z_ssd, z_trace = serve_lm(
+            ks, dev, arch, zb, zprompt, znew, {"flash_attention": k4, "ssd": 0}, "lm_zoo")
+        emit(rec)
+        emit(lm_check(dev, arch, zb, zprompt, znew, SEED, layers=check_layers))
+        gc.collect()
+        torch.cuda.empty_cache()
+        zoo_runs[f"lm_zoo {arch}"] = (attn_path_shapes(ks, dev, z_attn, f"lm_zoo {arch}"),
+                                      z_trace)
+        torch.cuda.empty_cache()
 
     kernels = [
         entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
@@ -1531,7 +1630,7 @@ def main() -> int:
                "hierarchy": (hier_recs["conv2d_dw"], hier_trace)}),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
-              {"lm_serve": (attn_recs, lm_trace)}, dtype=lm_cfg.compute_dtype),
+              {"lm_serve": (attn_recs, lm_trace), **zoo_runs}, dtype=torch.bfloat16),
         entry("ssd", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
               "src/repro/kernels/ssd.py:75",
               {"lm_serve": (ssd_recs, lm_trace)}, dtype=torch.float32),

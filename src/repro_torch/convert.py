@@ -7,7 +7,8 @@ of jax arrays; ``np.asarray`` on each leaf turns it into the numpy tree
 tree of tensors back into one, so two trees compare leaf by leaf.
 Layouts are kept as they are: conv kernels HWIO, dense kernels (in, out).
 ``lm_params_from_numpy`` does the same for the JAX package's ``init_lm``
-tree, whose blocks are stacked on a leading layer axis.
+tree, whose blocks are stacked on a leading layer axis, and
+``encdec_params_from_numpy`` for its ``init_encdec`` tree.
 """
 from __future__ import annotations
 
@@ -31,16 +32,33 @@ def _layer(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _split_layers(tree, stacked: dict, device) -> dict:
+    """``tree`` with each key of ``stacked`` (a leading layer axis of the
+    given length) turned into a list of per-layer dicts."""
+    out = {k: params_from_numpy(v, device) for k, v in tree.items() if k not in stacked}
+    for key, n in stacked.items():
+        out[key] = [params_from_numpy(_layer(tree[key], i), device) for i in range(n)]
+    return out
+
+
 def lm_params_from_numpy(tree, cfg, device) -> dict:
     """The port's decoder-only params from the JAX package's ``init_lm``
     tree with numpy leaves: every leaf kept as it is (``wq`` (d, h, hd),
-    ``wo`` (h, hd, d), ``in_proj`` (d, 2*d_in + 2*g*n + nh), ...), except
-    that ``blocks``, stacked on a leading layer axis, becomes a list of
-    ``cfg.num_layers`` per-layer dicts."""
-    out = {k: params_from_numpy(v, device) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [params_from_numpy(_layer(tree["blocks"], i), device)
-                     for i in range(cfg.num_layers)]
-    return out
+    ``wo`` (h, hd, d), ``in_proj`` (d, 2*d_in + 2*g*n + nh), a MoE
+    block's float32 ``router`` (d, E) and ``w_in``/``w_gate`` (E, d, ff),
+    ``w_out`` (E, ff, d), the VLM ``projector``'s ``fc1``/``fc2`` with
+    their biases, ...), except that ``blocks``, stacked on a leading
+    layer axis, becomes a list of ``cfg.num_layers`` per-layer dicts."""
+    return _split_layers(tree, {"blocks": cfg.num_layers}, device)
+
+
+def encdec_params_from_numpy(tree, cfg, device) -> dict:
+    """The port's encoder-decoder params from the JAX package's
+    ``init_encdec`` tree with numpy leaves: ``enc_blocks`` and
+    ``dec_blocks`` become lists of ``cfg.num_encoder_layers`` and
+    ``cfg.num_layers`` per-layer dicts, every other leaf as it is."""
+    return _split_layers(tree, {"enc_blocks": cfg.num_encoder_layers,
+                                "dec_blocks": cfg.num_layers}, device)
 
 
 def params_to_numpy(tree):

@@ -13,7 +13,9 @@
 //
 //   s = (q . k) * D^-1/2, masked to -1e30 where the key lies past T, or
 //       after the query (causal), or window or more positions before it;
-//   queries are right-aligned: query i sits at position T - S + i;
+//   queries are right-aligned: query i sits at position T - S + i (with
+//       neither mask S may exceed T: the offset is then negative, and
+//       no score reads it);
 //   m, l, acc updated per kv tile; out = acc / max(l, 1e-30) in q's dtype.
 //
 // A masked score contributes exactly 0 to l and acc.  The Pallas
@@ -616,8 +618,9 @@ extern "C" int flash_attn_fwd_launch(
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, int causal,
     int window, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || Tk < S ||
-      D <= 0 || D > 128 || (long long)B * H > 65535LL)
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || Tk <= 0 ||
+      (Tk < S && (causal || window > 0)) || D <= 0 || D > 128 ||
+      (long long)B * H > 65535LL)
     return (int)cudaErrorInvalidValue;
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};

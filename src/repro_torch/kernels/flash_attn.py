@@ -6,7 +6,10 @@ flash_attention_pallas``, with its contract: q (B, H, S, D) against k, v
 (B, KV, T, D), T >= S, queries right-aligned against the keys, causal
 and sliding-window masks on absolute positions, fp32 softmax statistics,
 the output in q's dtype.  KV may divide H (query head h reads kv head
-h // (H/KV)); with KV == H it is the Pallas contract exactly.
+h // (H/KV)); with KV == H it is the Pallas contract exactly.  Without
+a causal mask or a window no score depends on where a query sits, so
+there S may exceed T: the encoder-decoder's cross-attention, a prompt
+longer than the encoder's frames.
 
 What bounds it on an H100: 4*D operations per live (query, key) pair,
 so operations.  The dtype picks the kernel: bf16 runs ``mma.sync`` on the
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.kernels._build import flash_attn_fwd_library
 from repro_torch.kernels.conv2d import _DTYPE_CODE, _count, _on_cpu, _raise_on
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import check_lengths, flash_attention_ref
 
 MAX_HEAD_DIM = 128
 
@@ -48,7 +51,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, H, S, D) in q's dtype.
 
     All three float32 or all bfloat16 on one CUDA device (or all on the
-    CPU), T >= S >= 1, KV dividing H, D <= 128, ``window`` None or >= 1."""
+    CPU), S >= 1 and T >= 1, T >= S unless ``causal`` is False and
+    ``window`` None, KV dividing H, D <= 128, ``window`` None or >= 1."""
     if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if not (q.is_cuda and k.is_cuda and v.is_cuda
@@ -74,8 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention: k, v {tuple(k.shape)} do not fit q "
             f"{tuple(q.shape)} (same B and D, KV dividing H)"
         )
-    if s == 0 or t < s:
-        raise ValueError(f"flash_attention: want T >= S >= 1, got S={s}, T={t}")
+    check_lengths(s, t, causal, window)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {d} > {MAX_HEAD_DIM}")
     if window is not None and window < 1:

@@ -136,17 +136,29 @@ def attention_mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor
     return mask
 
 
+def check_lengths(s: int, t: int, causal: bool, window) -> None:
+    """Raise unless S queries may attend T keys under the flash contract:
+    both at least 1, and T >= S wherever a mask reads the queries'
+    right-aligned positions (causal, or a window)."""
+    if s == 0 or t == 0 or (t < s and (causal or window is not None)):
+        raise ValueError(f"flash_attention: want T >= S >= 1 (or S, T >= 1 with "
+                         f"neither a causal mask nor a window), got S={s}, T={t}, "
+                         f"causal={causal}, window={window}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window=None) -> torch.Tensor:
     """Attention with the Pallas kernel's contract, in q's dtype.
 
-    q: (B, H, S, D); k, v: (B, KV, T, D) with T >= S and KV dividing H
+    q: (B, H, S, D); k, v: (B, KV, T, D) with T >= S (or any S and T
+    with neither a causal mask nor a window) and KV dividing H
     (query head h reads kv head h // (H/KV), the head order of the JAX
     package's ``_split_gqa``).  Queries are right-aligned against the
     keys (query i sits at position T - S + i); the causal and window
     masks apply to those absolute positions.  Scores, softmax and the
     weighted sum run in float32 (float64 stays float64) with masked
     scores at -1e30, as ``repro/kernels/ref.py::flash_attention_ref``."""
+    check_lengths(q.shape[2], k.shape[2], causal, window)
     acc_t = _acc_dtype(q, k, v)
     group = q.shape[1] // k.shape[1]
     kf = k.to(acc_t).repeat_interleave(group, dim=1)

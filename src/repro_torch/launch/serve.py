@@ -4,10 +4,12 @@ of a model-zoo architecture.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --batch 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-Counterpart of ``repro/launch/serve.py``.  Without ``--full`` the
-architecture is reduced for a smoke run (``reduced_for_smoke``: 2
-layers, d_model <= 256, float32); ``--full`` serves the published
-config on one card, in its own dtype.  ``--device`` is ``cuda`` (the
+Counterpart of ``repro/launch/serve.py``, for every family: a VLM's
+prompt carries random patch embeddings in its first positions, and the
+encoder-decoder's batch random frame embeddings (``make_batch``).
+Without ``--full`` the architecture is reduced for a smoke run
+(``reduced_for_smoke``: 2 layers, d_model <= 256, float32); ``--full``
+serves the published config on one card, in its own dtype.  ``--device`` is ``cuda`` (the
 default: the hand-written kernels K4 and K5 run the prefill) or ``cpu``
 (their plain versions); ``cuda`` without a card is an error, never a CPU
 fallback.  The JAX launcher's ``--tp-mode`` and production mesh have no
@@ -26,19 +28,35 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
 
 
+def make_batch(cfg, *, seed: int, batch: int, prompt_len: int, device) -> dict:
+    """A prompt batch from numpy's generator seeded with ``seed``, drawn
+    in the JAX launcher's order: random ``tokens`` (B, prompt_len), then
+    for a VLM ``patches`` (B, num_image_tokens, vision_dim) and for the
+    encoder-decoder ``frames`` (B, num_frames, frame_dim), both standard
+    normal float32."""
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))}
+    if cfg.vision is not None:
+        v = cfg.vision
+        inputs["patches"] = rng.normal(size=(batch, v.num_image_tokens, v.vision_dim))
+    if cfg.audio is not None:
+        a = cfg.audio
+        inputs["frames"] = rng.normal(size=(batch, a.num_frames, a.frame_dim))
+    return {k: torch.from_numpy(a if k == "tokens" else a.astype(np.float32)).to(device)
+            for k, a in inputs.items()}
+
+
 def load(arch: str, *, full: bool, seed: int, batch: int, prompt_len: int, device):
-    """The engine over ``arch``'s params (``init_lm`` from a generator
-    seeded with ``seed`` on ``device``) and a prompt batch of random
-    tokens from numpy's generator seeded with ``seed``."""
+    """The engine over ``arch``'s params (the model's ``init`` from a
+    generator seeded with ``seed`` on ``device``) and a prompt batch
+    (``make_batch``)."""
     cfg = get_config(arch)
     if not full:
         cfg = reduced_for_smoke(cfg)
     api = build_model(cfg)
     device = torch.device(device)
     params = api.init(torch.Generator(device=device).manual_seed(seed), device)
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len))
-    inputs = {"tokens": torch.from_numpy(tokens).to(device)}
+    inputs = make_batch(cfg, seed=seed, batch=batch, prompt_len=prompt_len, device=device)
     return ServeEngine(api=api, params=params), inputs
 
 

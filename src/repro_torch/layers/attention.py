@@ -1,16 +1,18 @@
-"""Multi-head attention of the port: GQA, RoPE, sliding window, and
-one-token decode against a ring KV cache.
+"""Multi-head attention of the port: GQA, RoPE, sliding window,
+cross-attention, and one-token decode against a ring KV cache.
 
-Counterpart of ``repro/layers/attention.py`` for the decoder-only
-models.  Full-sequence attention (train, prefill) goes through an
+Counterpart of ``repro/layers/attention.py``.  Full-sequence attention
+(train, prefill, the encoder, cross-attention) goes through an
 ``attention_fn`` with the flash-attention contract — by default
 ``kernels.ops.flash_attention`` (K4, the hand-written Hopper kernel on
 the card), where the JAX package runs its jnp ``attend``: the Pallas
 kernel of ``repro/kernels/flash_attn.py`` implements the same contract.
-Decode reads a ring of cache slots whose positions are out of order, so
-it keeps the JAX package's ``naive_attention`` over explicit positions,
-in plain torch.  Cross-attention (the encoder-decoder family) comes
-with ``encdec``.
+That contract places query i at position i of its own sequence, which
+is what positions 0..S-1 give; decode reads a ring of cache slots whose
+positions are out of order, and a caller may supply positions of its
+own (``models/transformer.py::lm_forward(positions=...)``), so both keep
+the JAX package's ``naive_attention`` over explicit positions, in plain
+torch.
 """
 from __future__ import annotations
 
@@ -67,34 +69,59 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, q.shape[2], q.shape[3]).to(q.dtype)
 
 
-def project_qkv(params, x: torch.Tensor, *, cfg: ModelConfig):
-    """q (B,S,H,hd), k and v (B,S,KV,hd) of a full sequence at positions
-    0..S-1, RoPE applied to q and k, in the compute dtype."""
+def project_qkv(params, x: torch.Tensor, *, cfg: ModelConfig,
+                positions: Optional[torch.Tensor] = None):
+    """q (B,S,H,hd), k and v (B,S,KV,hd) of a full sequence, RoPE applied
+    to q and k at ``positions`` (B,S) (0..S-1 if None), in the compute
+    dtype."""
     dtype = cfg.compute_dtype
     q = apply_dense(params["wq"], x, dtype=dtype)
     k = apply_dense(params["wk"], x, dtype=dtype)
     v = apply_dense(params["wv"], x, dtype=dtype)
-    positions = torch.arange(x.shape[1], device=x.device)[None]
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None]
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def attend(q, k, v, *, cfg: ModelConfig, attention_fn=flash_attention) -> torch.Tensor:
-    """Causal (sliding-window) attention of a full sequence: q (B,S,H,hd),
-    k and v (B,S,KV,hd) -> (B,S,H,hd).  ``attention_fn`` takes the
-    (B, heads, S, hd) views the flash-attention contract wants; K4 reads
-    them through their strides, so the transposes copy nothing."""
+def attend(q, k, v, *, causal: bool, window: Optional[int],
+           attention_fn=flash_attention) -> torch.Tensor:
+    """Attention of a full sequence: q (B,S,H,hd), k and v (B,T,KV,hd) ->
+    (B,S,H,hd), queries at positions 0..S-1 and keys at 0..T-1 (the
+    flash contract's right alignment, for S == T or without masks).
+    ``attention_fn`` takes the (B, heads, len, hd) views the
+    flash-attention contract wants; K4 reads them through their
+    strides, so the transposes copy nothing."""
     out = attention_fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       causal=True, window=cfg.sliding_window)
+                       causal=causal, window=window)
     return out.transpose(1, 2)
 
 
-def apply_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
+def compute_kv(params, kv_x: torch.Tensor, dtype):
+    """Cross-attention k and v (B,T,KV,hd) of the encoder's output, no
+    RoPE: the encoder-decoder's prefill computes them once per layer and
+    caches them for decode."""
+    return (apply_dense(params["wk"], kv_x, dtype=dtype),
+            apply_dense(params["wv"], kv_x, dtype=dtype))
+
+
+def apply_attention(params, x: torch.Tensor, *, cfg: ModelConfig, causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
                     attention_fn=flash_attention) -> torch.Tensor:
-    """Full-sequence (train / prefill) causal self-attention."""
-    q, k, v = project_qkv(params, x, cfg=cfg)
-    out = attend(q, k, v, cfg=cfg, attention_fn=attention_fn)
-    return apply_dense(params["wo"], out, n_in_dims=2, dtype=cfg.compute_dtype)
+    """Full-sequence (train / prefill / encoder) attention: self-attention
+    at positions 0..S-1 under ``causal`` and ``cfg.sliding_window``; with
+    ``kv_x`` (B,T,d), cross-attention: no causal mask, no window, no RoPE
+    on either side."""
+    dtype = cfg.compute_dtype
+    if kv_x is None:
+        q, k, v = project_qkv(params, x, cfg=cfg)
+        out = attend(q, k, v, causal=causal, window=cfg.sliding_window,
+                     attention_fn=attention_fn)
+    else:
+        q = apply_dense(params["wq"], x, dtype=dtype)
+        k, v = compute_kv(params, kv_x, dtype)
+        out = attend(q, k, v, causal=False, window=None, attention_fn=attention_fn)
+    return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)
 
 
 def decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -120,4 +147,18 @@ def decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     cache_v[:, index] = v[:, 0].to(cache_v.dtype)
     out = naive_attention(q, cache_k.to(dtype), cache_v.to(dtype), pos_arr, kv_pos,
                           causal=True, window=cfg.sliding_window)
+    return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)
+
+
+def cross_decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
+                           k: torch.Tensor, v: torch.Tensor,
+                           kv_positions: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of one decode token (B,1,d) against the encoder's
+    cached k and v (B,T,KV,hd): no mask but the slots' validity, no
+    RoPE.  Returns (B,1,d)."""
+    dtype = cfg.compute_dtype
+    q = apply_dense(params["wq"], x, dtype=dtype)
+    pos = torch.zeros((x.shape[0], 1), dtype=torch.int32, device=x.device)
+    out = naive_attention(q, k.to(dtype), v.to(dtype), pos, kv_positions,
+                          causal=False, window=None)
     return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer of the port: the dense, ssm and hybrid
-families, full forward, prefill into a decode cache, and one-token
+"""Decoder-only transformer of the port: the dense, moe, ssm, hybrid and
+vlm families, full forward, prefill into a decode cache, and one-token
 decode.
 
 Counterpart of ``repro/models/transformer.py``.  Params are a nested
@@ -10,38 +10,27 @@ full-sequence functions take the attention and SSD functions as
 arguments, as ``models/cnn.py::cnn_forward`` takes its conv: by default
 ``kernels.ops.flash_attention`` (K4) and ``kernels.ops.ssd`` (K5), the
 hand-written Hopper kernels on the card; their plain versions give the
-same model in plain torch.  Decode launches neither kernel.
-
-Not ported yet (ROADMAP.md §1): MoE blocks, the VLM projector's patch
-embeddings, caller-supplied positions and the encoder-decoder family;
-each raises ``NotImplementedError``.
+same model in plain torch.  Decode launches neither kernel.  A MoE
+block (``layers/moe.py``) takes the MLP's place; the VLM projector maps
+the caller's patch embeddings onto the first positions of the sequence.
+The encoder-decoder family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention, ssd
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mamba2 as mamba_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_from_embedding
 from repro_torch.layers.linear import apply_dense, init_dense
 from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.norm import apply_norm, init_norm
-
-_LATER = "is not ported yet (ROADMAP.md §1, the model zoo's remaining modules)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this model cannot run."""
-    if cfg.num_encoder_layers > 0:
-        raise NotImplementedError(f"{cfg.arch_id}: the encoder-decoder family {_LATER}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: MoE blocks (layers/moe.py) {_LATER}")
-    if cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: the VLM projector {_LATER}")
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -52,8 +41,12 @@ def _has_mamba(cfg: ModelConfig) -> bool:
     return cfg.family in ("ssm", "hybrid")
 
 
+def _has_moe(cfg: ModelConfig) -> bool:
+    return cfg.moe is not None
+
+
 def _has_mlp(cfg: ModelConfig) -> bool:
-    return cfg.family != "ssm"  # MoE blocks are refused by check_supported
+    return cfg.family != "ssm" and not _has_moe(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +59,10 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
         p["attn"] = attn_lib.init_attention(generator, cfg, dtype, device)
     if _has_mamba(cfg):
         p["mamba"] = mamba_lib.init_mamba2(generator, cfg, dtype, device)
-    if _has_mlp(cfg):
+    if _has_moe(cfg):
+        p["ln2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["moe"] = moe_lib.init_moe(generator, cfg.d_model, cfg.moe, dtype, device)
+    elif _has_mlp(cfg):
         p["ln2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
                             gated=cfg.gated_mlp, device=device)
@@ -76,8 +72,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
     """Random params drawn from ``generator`` (on any device; drawing on
     the card is fast at full width), placed on ``device`` in
-    ``cfg.param_dtype``."""
-    check_supported(cfg)
+    ``cfg.param_dtype`` (a MoE router in float32).  Each tensor is drawn
+    and placed before the next, so the transient is one tensor's float32
+    draw."""
     dtype = getattr(torch, cfg.param_dtype)
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device),
@@ -88,6 +85,14 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
     if not cfg.tie_embeddings:
         p["lm_head"] = init_dense(generator, (cfg.d_model,), (cfg.vocab_size,), dtype,
                                   device=device)
+    if cfg.vision is not None:
+        v = cfg.vision
+        p["projector"] = {
+            "fc1": init_dense(generator, (v.vision_dim,), (v.projector_hidden,), dtype,
+                              use_bias=True, device=device),
+            "fc2": init_dense(generator, (v.projector_hidden,), (cfg.d_model,), dtype,
+                              use_bias=True, device=device),
+        }
     return p
 
 
@@ -95,38 +100,55 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
 # full sequence
 
 
-def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *, cfg: ModelConfig) -> torch.Tensor:
+def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *,
+          cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A block's tail: hymba's attention and mamba heads, run in parallel
     on the same input, are fused by averaging; then the residual and the
-    MLP."""
+    MLP or the MoE.  Returns (x, the MoE's aux loss or None)."""
     if attn_out is None or mamba_out is None:
         mix = mamba_out if attn_out is None else attn_out
     else:
         mix = 0.5 * (attn_out + mamba_out)
     x = x + mix
+    aux = None
     if "ln2" in lp:
-        x = x + apply_mlp(lp["mlp"], apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps),
-                          cfg=cfg)
-    return x
+        h = apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
+        if "moe" in lp:
+            y, aux = moe_lib.apply_moe(lp["moe"], h, cfg=cfg)
+        else:
+            y = apply_mlp(lp["mlp"], h, cfg=cfg)
+        x = x + y
+    return x, aux
 
 
 def apply_block(lp, x: torch.Tensor, *, cfg: ModelConfig,
-                attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence block.  Returns (x, state): the layer's k and v
+                positions: Optional[torch.Tensor] = None,
+                attention_fn=flash_attention,
+                ssd_fn=ssd) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """Full-sequence block.  Returns (x, state, aux): the layer's k and v
     (B, S, KV, hd) and its mamba ``conv`` and ``ssm`` states, whichever
-    the family has, for the prefill's cache."""
+    the family has, for the prefill's cache; the MoE's aux loss or None.
+    Caller-supplied ``positions`` (B, S) take the position-masked plain
+    attention (``attn_lib.naive_attention``)."""
     h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
     state: Dict[str, torch.Tensor] = {}
     attn_out = mamba_out = None
     if _has_attn(cfg):
-        q, state["k"], state["v"] = attn_lib.project_qkv(lp["attn"], h, cfg=cfg)
-        out = attn_lib.attend(q, state["k"], state["v"], cfg=cfg, attention_fn=attention_fn)
+        q, state["k"], state["v"] = attn_lib.project_qkv(lp["attn"], h, cfg=cfg,
+                                                         positions=positions)
+        if positions is None:
+            out = attn_lib.attend(q, state["k"], state["v"], causal=True,
+                                  window=cfg.sliding_window, attention_fn=attention_fn)
+        else:
+            out = attn_lib.naive_attention(q, state["k"], state["v"], positions, positions,
+                                           causal=True, window=cfg.sliding_window)
         attn_out = apply_dense(lp["attn"]["wo"], out, n_in_dims=2, dtype=cfg.compute_dtype)
     if _has_mamba(cfg):
         mamba_out, mamba_state = mamba_lib.mamba2_with_state(lp["mamba"], h, cfg=cfg,
                                                              ssd_fn=ssd_fn)
         state.update(mamba_state)
-    return _fuse(lp, x, attn_out, mamba_out, cfg=cfg), state
+    x, aux = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
+    return x, state, aux
 
 
 def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool) -> torch.Tensor:
@@ -141,26 +163,42 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool) -> torch.
     return logits
 
 
-def _embed(params, tokens, cfg: ModelConfig, patches, positions=None):
-    check_supported(cfg)
-    if patches is not None:
-        raise NotImplementedError(f"patch embeddings (the VLM projector) {_LATER}")
-    if positions is not None:
-        raise NotImplementedError(f"caller-supplied positions {_LATER}")
-    return embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           patches: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; with ``patches`` (B, n_img, vision_dim) and a VLM
+    config, the projector's output (fc1, tanh-approximated GELU as
+    ``jax.nn.gelu``, fc2) takes the first n_img positions."""
+    dtype = cfg.compute_dtype
+    x = embed_tokens(params["embed"], tokens, dtype)
+    if cfg.vision is None or patches is None:
+        return x
+    n_img = patches.shape[1]
+    if tokens.shape[1] < n_img:
+        raise ValueError(
+            f"{cfg.arch_id}: a prompt of {tokens.shape[1]} tokens is shorter than its "
+            f"{n_img} patch embeddings, which take its first positions")
+    proj = F.gelu(apply_dense(params["projector"]["fc1"], patches.to(dtype), dtype=dtype),
+                  approximate="tanh")
+    proj = apply_dense(params["projector"]["fc2"], proj, dtype=dtype)
+    return torch.cat([proj, x[:, n_img:]], dim=1)
 
 
 def lm_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                patches: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None,
                attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train / prefill forward over a full sequence at positions 0..S-1.
-    Returns (logits (B, S, vocab), aux): aux, the MoE balance loss, is 0."""
-    x = _embed(params, tokens, cfg, patches, positions)
+    """Train / prefill forward over a full sequence, at positions 0..S-1
+    or at the caller's ``positions`` (B, S).  Returns (logits (B, S,
+    vocab), aux): aux, the MoE balance loss summed over the layers (0
+    without MoE), float32."""
+    x = _embed(params, tokens, cfg, patches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["blocks"]:
-        x, _ = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
-    logits = _head(params, x, cfg, softcap=True)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        x, _, a = apply_block(lp, x, cfg=cfg, positions=positions,
+                              attention_fn=attention_fn, ssd_fn=ssd_fn)
+        if a is not None:
+            aux = aux + a
+    return _head(params, x, cfg, softcap=True), aux
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +251,7 @@ def lm_prefill(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     slots = fill_pos % c if c else fill_pos
 
     for layer, lp in enumerate(params["blocks"]):
-        x, state = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
+        x, state, _ = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
         if "k" in state:  # the cache is filled in place
             cache["k"][layer][:, slots] = state["k"][:, s - n_fill:]
             cache["v"][layer][:, slots] = state["v"][:, s - n_fill:]
@@ -253,7 +291,7 @@ def lm_decode_step(params, cache, tokens: torch.Tensor, *,
                 cfg=cfg)
             cache["conv"][layer] = state["conv"]
             cache["ssm"][layer] = state["ssm"]
-        x = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
+        x, _ = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
 
     cache["t"] = position + 1
     return _head(params, x, cfg, softcap=True)[:, 0], cache

@@ -55,6 +55,10 @@ class ServeEngine:
         """Prefill the prompt batch then decode greedily or sampled.
         Returns generated tokens (B, max_new_tokens) int32.
 
+        ``batch`` holds ``tokens`` (B, S) and, whatever the model takes
+        beside them, a VLM's ``patches`` or the encoder-decoder's
+        ``frames``: the whole batch goes to the model's prefill.
+
         Sampling draws from a ``torch.Generator`` seeded with ``seed``
         (on the logits' device), so it does not give jax's bits.
         ``cache_len`` sizes the cache (default: prompt plus new tokens);

@@ -1,7 +1,8 @@
 """The port on the card: the hand-written CUDA kernels (forward K1, dX
 K2, dW K3, flash attention K4, SSD scan K5) against their plain PyTorch
 versions, the ``cuda`` backend serving and running the backward through
-the cluster, and the model zoo's prefill and decode through K4 and K5.
+the cluster, and the model zoo's prefill and decode through K4 and K5
+(the MoE, VLM and encoder-decoder families included).
 
 Every test here is marked ``gpu`` and skips without a CUDA card (the
 kernels have no CPU mode; their arithmetic is held against the JAX
@@ -515,6 +516,79 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
         flash_attention(q, q[:, :, :3], q[:, :, :3])
     with pytest.raises(ValueError, match="KV dividing H"):
         flash_attention(torch.zeros((1, 3, 4, 8), device=dev), q, q)
+
+
+# the model zoo's new shapes for K4: head_dim 128 with GQA 32/8 under a
+# window (llava), whisper's non-causal encoder (S = T = 1500), its
+# cross-attention (S < T), and more queries than keys without masks (a
+# prompt longer than the encoder's frames)
+ZOO_ATTN_CASES = [  # (B, H, KV, S, T, D, causal, window)
+    (1, 32, 8, 600, 600, 128, True, 256),
+    (1, 16, 16, 1500, 1500, 64, False, None),
+    (2, 16, 16, 224, 1500, 64, False, None),
+    (2, 16, 16, 300, 100, 64, False, None),
+    (1, 4, 4, 130, 7, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", ZOO_ATTN_CASES)
+def test_flash_attention_zoo_shapes_match_plain_version(dev, b, h, kv, s, t, d, causal,
+                                                        window, dtype):
+    tdtype, atol = TOL[dtype]
+    q, k, v = _attn_inputs(dev, tdtype, b, h, kv, s, t, d, seed=5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                               window=window)
+    rtol = 0.05
+    if tdtype == torch.bfloat16:
+        want, (atol, rtol) = want.to(tdtype).double(), BF16_OUT_TOL
+    torch.testing.assert_close(got.double(), want, atol=atol, rtol=rtol)
+
+
+def test_flash_attention_refuses_more_queries_than_keys_under_a_mask(dev):
+    q = torch.zeros((1, 2, 9, 8), device=dev)
+    k = q[:, :, :4]
+    for causal, window in ((True, None), (False, 3)):
+        with pytest.raises(ValueError, match="T >= S"):
+            flash_attention(q, k, k, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("arch,per_layer", [("moonshot-v1-16b-a3b", 1),
+                                            ("llava-next-mistral-7b", 1),
+                                            ("whisper-medium", 3)])
+def test_zoo_prefill_and_decode_on_the_card_match_the_plain_path(dev, arch, per_layer):
+    """Reduced MoE, VLM and encoder-decoder models on the card: K4 once
+    per attention of the prefill (whisper: encoder, decoder self- and
+    cross-attention, each a layer group of 2), never in decode; logits
+    and every cache entry against the same model with K4's plain version."""
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced_for_smoke(get_config(arch))
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = make_batch(cfg, seed=0, batch=2, prompt_len=40, device=dev)
+    prompt = dict(batch, tokens=batch["tokens"][:, :30])
+    before = flash_attention.launches
+    logits, cache = api.prefill(params, prompt, cache_len=40)
+    assert flash_attention.launches == before + per_layer * cfg.num_layers
+    want, want_cache = api.prefill(params, prompt, cache_len=40,
+                                   attention_fn=flash_attention_ref)
+    torch.testing.assert_close(logits, want, atol=2e-3, rtol=2e-3)
+    for key in sorted(set(cache) - {"t"}):
+        torch.testing.assert_close(cache[key], want_cache[key], atol=2e-3, rtol=2e-3)
+    mid = flash_attention.launches
+    for t in range(30, 40):
+        got, cache = api.decode_step(params, cache, batch["tokens"][:, t : t + 1])
+        want, want_cache = api.decode_step(params, want_cache,
+                                           batch["tokens"][:, t : t + 1])
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert flash_attention.launches == mid
 
 
 def _ssd_inputs_on(dev, dtype, b, s, h, g, p, n, seed=0):

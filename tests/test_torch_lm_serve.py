@@ -14,8 +14,8 @@ the kernels' contract, the JAX model its jnp forms).
 
 Also: ``ServeEngine.generate``'s greedy tokens equal the JAX engine's;
 the port's serve CLI runs reduced on the CPU when asked and refuses
-without a card otherwise; MoE and encoder-decoder configs raise
-``NotImplementedError``.
+without a card otherwise.  The MoE, VLM and encoder-decoder families,
+and caller-supplied positions, are tests/test_torch_lm_zoo.py's.
 """
 import os
 import subprocess
@@ -204,19 +204,3 @@ def test_serve_cli_refuses_without_a_card():
     r = _serve_cli("--batch", "2", "--prompt-len", "8", "--max-new", "2")
     assert r.returncode != 0
     assert "needs a CUDA card" in r.stderr
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b"])
-def test_unported_families_raise(arch):
-    cfg = reduced_for_smoke(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg)
-
-
-def test_caller_positions_raise():
-    _, tcfg = CASES["dense-gqa"]
-    api = build_model(tcfg)
-    params = api.init(torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="positions"):
-        api.forward(params, {"tokens": toks}, positions=torch.arange(4)[None])
