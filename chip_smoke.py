@@ -89,7 +89,31 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``LM_RTOL`` of the largest logit, and the prefill's cache;
 14. main-path shapes (lm_serve) — K4 and K5 at every shape the lm_serve
    run gave them, timed in isolation;
-15. hierarchy — phase 7's training run (its network, batch,
+15. kernel_grad — ``FlashAttentionFunction`` (forward K4, backward
+   ``flash_attention_vjp``) and ``SsdFunction`` (forward K5, backward
+   ``ssd_vjp``) at hymba's training shapes (K4: B 2, H 25 over KV 5, S =
+   T = 4,096, D 64, window 1,024; K5: B 2, S 4,096, H 50, P 64, N 16,
+   chunk 256), fp32 and bf16: every input gradient against float64
+   autograd through the plain versions, at the kernel bounds above; the
+   forward launches its kernel once, the backward none; with the
+   forward's and the vjp's isolated times (the vjps are plain torch: no
+   TPU kernel computes a gradient);
+16. lm_train — the port's ``launch/train.py`` (``train``) on
+   ``hymba-1.5b`` at full width in bf16 (1.64 B params; nothing cut):
+   batch 4 x 4,096 tokens in 2 microbatches, adam at lr 1e-3, cosine,
+   remat full, 4 steps untraced (losses, s/step over steps 2-4,
+   tokens/s, peak memory), then 1 step from the same seed in a profiler
+   trace with CPU activity (K4's and K5's traced ms, the vjps' device ms
+   from their ``record_function`` ranges, the busy share).  Every loss,
+   aux and grad_norm finite; K4 and K5 128 launches a step each (2
+   microbatches x 32 layers x the forward and the remat recompute), the
+   trace's equal to the wrappers'; then ``lm_train_check``: step 1 in
+   fp32 at full width (batch 1, SGD, remat full), the kernel path (K4,
+   K5 and their vjps) against the plain path (autograd through the plain
+   versions): loss within 1e-5, grad_norm within 1e-4, every clipped
+   gradient leaf within 1e-3 of its largest value; then K4 and K5 at the
+   train path's shapes, timed in isolation;
+17. hierarchy — phase 7's training run (its network, batch,
    microbatches, steps and lr, held against its float64 steps) over
    the two-tier hierarchy: ``run_hetero(groups="2x2",
    group_partition="kernel")`` with a ``cuda`` root and two sub-master
@@ -108,7 +132,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    failed phase 11's 3-call grid trace when this phase ran after phase
    9; the phase records how many of 3 K1 launches a short trace sees
    just before and just after it;
-16. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
+18. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
    width in its own bf16, every earlier phase's tensors and the
    allocator's cache freed first: moonshot-v1-16b-a3b (48 layers, 64
    experts top-6, 56.1 GB of weights; K4 48 times a prefill),
@@ -121,8 +145,8 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    K4 at every shape the runs gave it.
 
 Every wrapper's launch count is set to 0 just before a main-path run
-(serve, train, lm_serve, the in-process hierarchy, each lm_zoo run) and
-read just after.
+(serve, train, lm_serve, each lm_train run, the in-process hierarchy,
+each lm_zoo run) and read just after.
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -193,6 +217,18 @@ SYMBOLS = {
     "ssd": ("ssd_fwd_kernel", "ssd_prefix_kernel", "ssd_out_kernel"),
 }
 CONV_KINDS = ("conv2d_fwd", "conv2d_dx", "conv2d_dw")
+# the profiler ranges around the backward of K4 and K5 (plain torch)
+VJP_RANGES = ("flash_attention_vjp", "ssd_vjp")
+# lm_train: hymba-1.5b at full width, bf16, adam at lr 1e-3, cosine,
+# remat full; 4 steps of batch 4 x 4,096 tokens in 2 microbatches, so K4
+# and K5 run 2 x 32 x 2 = 128 times a step (microbatches x layers x the
+# forward and the backward's recompute); then 1 step in a trace
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = "hymba-1.5b", 4, 4096, 2, 4
+TRAIN_TRACED_STEPS = 1
+# lm_train's step-1 parity in fp32 (kernel path against plain path):
+# the loss, the gradient norm, and each clipped-gradient leaf against
+# its largest value (lm_check's rule)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
 # kernels that must build without spills (ptxas's report)
 NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dx_kernel", "conv2d_dw_kernel")
 
@@ -284,9 +320,11 @@ def bound(flops, nbytes, dtype):
 def device_trace(prof, window_s: float) -> dict:
     """The card's activity in a profiler trace: each wrapper's kernel
     launches and summed time (``SYMBOLS``), and the share of
-    ``window_s`` in which any kernel or copy ran (overlaps counted once)."""
+    ``window_s`` in which any kernel or copy ran (overlaps counted once;
+    the ranges ``VJP_RANGES`` mark on the card's timeline are no work)."""
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name not in VJP_RANGES]
     kernels = {}
     for name, syms in SYMBOLS.items():
         ours = [e for e in dev if any(s in e.name for s in syms)]
@@ -1103,6 +1141,335 @@ def attn_path_shapes(ks, dev, shapes, path):
     return recs
 
 
+def ssd_path_shapes(ks, dev, shapes, path):
+    """K5 against its plain version at every shape a main-path run gave
+    it, timed in isolation; each record carries its launch count."""
+    recs = []
+    for (b_, s_, h_, g_, p_, n_, chunk, dtype), n in sorted(shapes.items(), key=str):
+        r = check_ssd(ks, dev, b_, s_, h_, g_, p_, n_, chunk, dtype,
+                      label=f"{path} x{n}", phase="main_path_shape")
+        r.update(launches=n, path=path)
+        emit(r)
+        recs.append(r)
+    return recs
+
+
+def grad_close(got, want, dtype, atol, rtol):
+    """(max abs err, within bounds) of a gradient against its float64
+    reference; a bf16 gradient (rounded once from fp32) against the
+    reference rounded to bf16 at ``BF16_OUT_TOL``'s rtol."""
+    if got.dtype == torch.bfloat16:
+        want, rtol = want.to(torch.bfloat16).double(), BF16_OUT_TOL[1]
+    err = (got.double() - want).abs().max().item()
+    return err, bool(torch.allclose(got.double(), want, atol=atol, rtol=rtol))
+
+
+def check_grad_attn(ks, dev, b, h, kv, s, t, d, causal, window, dtype):
+    """``FlashAttentionFunction`` (forward K4, backward
+    ``flash_attention_vjp``) at one shape: dq, dk, dv against float64
+    autograd through the plain version, one batch row at a time, at
+    ``TOL`` (``BF16_OUT_TOL`` for bf16); the forward launches K4 once and
+    the backward no kernel.  Returns the record, with the forward's and
+    the vjp's isolated times."""
+    from repro_torch.kernels.flash_attn import FlashAttentionFunction, flash_attention_vjp
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + h)
+    q, k, v = (torch.randn((b, n, heads, d), generator=gen, device=dev).to(dtype)
+               .transpose(1, 2).requires_grad_(True)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    dout = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+    fn = ks.wrapper["flash_attention"]
+    before = fn.launches
+    out = FlashAttentionFunction.apply(q, k, v, causal, window)
+    fwd_launches = fn.launches - before
+    out.backward(dout)
+    torch.cuda.synchronize()
+    bwd_launches = fn.launches - before - fwd_launches
+    if fwd_launches != 1 or bwd_launches != 0:
+        fail(f"kernel_grad flash_attention: forward launched K4 {fwd_launches} times, "
+             f"backward {bwd_launches}")
+    atol, rtol = TOL[torch.float32]
+    errs, ok = {}, True
+    for i in range(b):
+        leaves = [x[i : i + 1].detach().double().requires_grad_(True) for x in (q, k, v)]
+        flash_attention_ref(*leaves, causal=causal, window=window).backward(
+            dout[i : i + 1].double())
+        for name, x, ref in zip(("dq", "dk", "dv"), (q, k, v), leaves):
+            err, good = grad_close(x.grad[i : i + 1], ref.grad, dtype, atol, rtol)
+            errs[name] = max(errs.get(name, 0.0), err)
+            ok = ok and good
+        del leaves
+    if not ok:
+        fail(f"kernel_grad flash_attention {dtype}: gradients vs float64 max abs err {errs}")
+    qd, kd, vd, od = q.detach(), k.detach(), v.detach(), out.detach()
+    rec = {"phase": "kernel_grad", "kernel": "flash_attention", "dtype": str(dtype)[6:],
+           "shape": {"B": b, "H": h, "KV": kv, "S": s, "T": t, "D": d, "causal": causal,
+                     "window": window},
+           "max_abs_err": errs, "atol": atol,
+           "rtol": rtol if dtype == torch.float32 else BF16_OUT_TOL[1],
+           "forward_launches": fwd_launches, "backward_launches": bwd_launches,
+           "forward_ms": events_ms(lambda: fn(qd, kd, vd, causal=causal, window=window), 5),
+           "vjp_ms": events_ms(lambda: flash_attention_vjp(qd, kd, vd, od, dout, causal,
+                                                           window), 3),
+           "vjp": "plain torch, no TPU kernel"}
+    del q, k, v, out, dout, qd, kd, vd, od
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_grad_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype):
+    """``SsdFunction`` (forward K5, backward ``ssd_vjp``) at one shape,
+    with cotangents on y and the final state: dx, ddt, da, dB, dC against
+    float64 autograd through the plain version, at K5's bounds (10x the
+    fp32 atol; ``BF16_OUT_TOL``'s rtol for bf16); the forward launches K5
+    once and the backward no kernel.  Returns the record."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd import SsdFunction, ssd_vjp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + h + p)
+    ins = [torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype),
+           torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev)),
+           -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5),
+           torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype),
+           torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)]
+    ins = [x.requires_grad_(True) for x in ins]
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dstate = torch.randn((b, h, p, n), generator=gen, device=dev)
+    fn = ks.wrapper["ssd"]
+    before = fn.launches
+    y, state = SsdFunction.apply(*ins, chunk)
+    fwd_launches = fn.launches - before
+    torch.autograd.backward((y, state), (dy, dstate))
+    torch.cuda.synchronize()
+    bwd_launches = fn.launches - before - fwd_launches
+    if fwd_launches != 1 or bwd_launches != 0:
+        fail(f"kernel_grad ssd: forward launched K5 {fwd_launches} times, "
+             f"backward {bwd_launches}")
+    leaves = [x.detach().double().requires_grad_(True) for x in ins]
+    y64, s64 = ssd_chunked_ref(*leaves, min(chunk, s))
+    torch.autograd.backward((y64, s64), (dy.double(), dstate.double()))
+    atol, rtol = 10 * TOL[torch.float32][0], TOL[torch.float32][1]
+    errs, ok = {}, True
+    for name, x, ref in zip(("dx", "ddt", "da", "dB", "dC"), ins, leaves):
+        errs[name], good = grad_close(x.grad, ref.grad, dtype, atol, rtol)
+        ok = ok and good
+    if not ok:
+        fail(f"kernel_grad ssd {dtype}: gradients vs float64 max abs err {errs}")
+    det = [x.detach() for x in ins]
+    rec = {"phase": "kernel_grad", "kernel": "ssd", "dtype": str(dtype)[6:],
+           "shape": {"B": b, "S": s, "H": h, "G": g, "P": p, "N": n, "chunk": chunk},
+           "max_abs_err": errs, "atol": atol,
+           "rtol": rtol if dtype == torch.float32 else BF16_OUT_TOL[1],
+           "forward_launches": fwd_launches, "backward_launches": bwd_launches,
+           "forward_ms": events_ms(lambda: fn(*det, chunk=chunk), 5),
+           "vjp_ms": events_ms(lambda: ssd_vjp(*det, chunk, dy, None), 3),
+           "vjp": "plain torch, no TPU kernel"}
+    del ins, leaves, y, state, y64, s64, det
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vjp_device_ms(prof) -> dict:
+    """Device time of the kernels each ``VJP_RANGES`` range launched
+    (profiled with CPU activity), and the ranges' count."""
+    out = {name: {"calls": 0, "ms": 0.0} for name in VJP_RANGES}
+    for e in prof.events():
+        if e.name in VJP_RANGES and e.device_type == torch.autograd.DeviceType.CPU:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            out[e.name]["calls"] += 1
+            out[e.name]["ms"] += total / 1e3
+    return out
+
+
+def lm_train(ks, dev):
+    """The port's ``launch/train.py`` (``train``) on hymba-1.5b at full
+    width (``full=True``: the published config in bf16, remat full):
+    ``TRAIN_STEPS`` steps of adam at lr 1e-3 (cosine) on batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_ACCUM`` microbatches,
+    untraced (losses, s/step, tokens/s, peak memory); then
+    ``TRAIN_TRACED_STEPS`` steps from the same seed inside a profiler
+    trace with CPU activity (K4's and K5's traced time, the vjps' device
+    time, the busy share).  Every loss, aux and grad_norm finite; each
+    run's K4 and K5 launches 128 a step, and the trace's equal to the
+    wrappers'.  Returns (the record, K4's and K5's train shapes and the
+    traced run's launch counts, the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(TRAIN_ARCH)
+    per_step = TRAIN_ACCUM * cfg.num_layers * 2
+    kinds = ("flash_attention", "ssd")
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3, optimizer="adam",
+              grad_accum=TRAIN_ACCUM, full=True, seed=SEED, device=dev, log_every=1,
+              log=lambda line: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ks)
+    t0 = time.perf_counter()
+    state, recs = train(TRAIN_ARCH, steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts(ks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params_b = sum(t.numel() for t in _leaves(state.params)) / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in recs:
+        if not all(np.isfinite(r[k]) for k in ("loss", "aux_loss", "grad_norm")):
+            fail(f"lm_train: non-finite metrics {recs}")
+    for kind in kinds:
+        if counts[kind] != per_step * TRAIN_STEPS:
+            fail(f"lm_train: {kind} launched {counts[kind]} times in {TRAIN_STEPS} "
+                 f"steps, want {per_step} a step")
+    if any(counts[k] for k in CONV_KINDS):
+        fail(f"lm_train: a conv kernel ran on the language model's path: {counts}")
+    s_per_step = (recs[-1]["elapsed_s"] - recs[0]["elapsed_s"]) / (TRAIN_STEPS - 1)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        state, traced = train(TRAIN_ARCH, steps=TRAIN_TRACED_STEPS, **kw)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        traced_counts = read_counts(ks)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the busy share over the steps, not the params' draw before them
+    trace = device_trace(prof, traced[-1]["elapsed_s"])
+    vjps = vjp_device_ms(prof)
+    del prof
+    trace_read_s = time.perf_counter() - t0
+    for kind in kinds:
+        if traced_counts[kind] != per_step * TRAIN_TRACED_STEPS:
+            fail(f"lm_train traced: {kind} launched {traced_counts[kind]} times")
+        if trace["kernels"][kind]["launches"] != traced_counts[kind]:
+            fail(f"lm_train: the trace holds {trace['kernels'][kind]['launches']} {kind} "
+                 f"launches, the wrapper counted {traced_counts[kind]}")
+    # the same seed, the same steps: the same losses but for the order of
+    # atomic adds in a backward (1e-3 relative)
+    rerun_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(traced, recs)]
+    if max(rerun_rel) > 1e-3:
+        fail(f"lm_train: the traced run's losses {traced} differ from the first run's")
+    for name, v in vjps.items():
+        if v["calls"] != per_step // 2 * TRAIN_TRACED_STEPS:
+            fail(f"lm_train: {v['calls']} {name} ranges in the trace, want "
+                 f"{per_step // 2} a step")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = TRAIN_TRACED_STEPS
+    rec = {"phase": "lm_train", "arch": TRAIN_ARCH, "full": True, "dtype": cfg.dtype,
+           "params_b": params_b, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "grad_accum": TRAIN_ACCUM, "optimizer": "adam", "lr": 1e-3,
+           "schedule": "cosine", "remat": "full", "steps": TRAIN_STEPS,
+           "losses": [r["loss"] for r in recs], "aux": [r["aux_loss"] for r in recs],
+           "grad_norms": [r["grad_norm"] for r in recs], "lrs": [r["lr"] for r in recs],
+           "elapsed_s": [r["elapsed_s"] for r in recs],
+           "s_per_step_2_to_4": s_per_step, "tokens_per_s": tokens / s_per_step,
+           "first_step_s": recs[0]["elapsed_s"], "run_s": run_s,
+           "peak_memory_gb": peak_gb, "launches": counts,
+           "launches_per_step": {k: counts[k] // TRAIN_STEPS for k in kinds},
+           "traced": {"steps": n, "run_s": traced_s, "launches": traced_counts,
+                      "loss_rel_diff_to_first_run": rerun_rel,
+                      "trace_read_s": trace_read_s,
+                      "busy_share": trace["busy_share"],
+                      "note": "traced with CPU activity, which slows the host: the "
+                              "busy share is a lower bound",
+                      "k4_ms_per_step": trace["kernels"]["flash_attention"]["ms"] / n,
+                      "k5_ms_per_step": trace["kernels"]["ssd"]["ms"] / n,
+                      "flash_attention_vjp_ms_per_step": vjps["flash_attention_vjp"]["ms"] / n,
+                      "ssd_vjp_ms_per_step": vjps["ssd_vjp"]["ms"] / n,
+                      "busy_ms_per_step": trace["busy_ms"] / n,
+                      "device_events_per_step": trace["device_events"] / n,
+                      "vjps": "plain torch, no TPU kernel"}}
+    b = TRAIN_BATCH // TRAIN_ACCUM
+    attn_shape = (b, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                  cfg.resolved_head_dim, True, cfg.sliding_window, cfg.compute_dtype)
+    ssm = cfg.ssm
+    ssd_shape = (b, TRAIN_SEQ, ssm.n_heads(cfg.d_model), ssm.n_groups, ssm.head_dim,
+                 ssm.d_state, ssm.chunk_size, torch.float32)
+    shapes = ({attn_shape: traced_counts["flash_attention"]},
+              {ssd_shape: traced_counts["ssd"]})
+    return rec, shapes, trace
+
+
+def lm_train_check(ks, dev):
+    """Step 1 of the train step at full width and depth in fp32 (``dtype``
+    and ``param_dtype`` float32; it fits the card without a cut), batch
+    1 x ``TRAIN_SEQ``, SGD, remat full: the kernel path (K4, K5 and
+    their vjps) against the plain path (the kernels' plain versions as
+    ``attention_fn`` / ``ssd_fn``, autograd through them) from the same
+    params and batch; the kernel path launches K4 and K5 twice a layer
+    (forward and recompute), the plain path neither.  The loss within
+    ``TRAIN_LOSS_RTOL``, the
+    gradient norm within ``TRAIN_GNORM_RTOL``, and every leaf of the
+    clipped gradient (SGD's first momentum) within ``TRAIN_GRAD_RTOL``
+    of its largest value.  Returns the record."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import synthetic_token_batches
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_paths
+
+    cfg = get_config(TRAIN_ARCH).with_(dtype="float32", param_dtype="float32")
+    api = build_model(cfg)
+    run = RunConfig(optimizer="sgd", learning_rate=1e-3, remat="full", warmup_steps=1,
+                    total_steps=1)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED), api, run, dev)
+    torch.cuda.reset_peak_memory_stats()
+    host = next(synthetic_token_batches(1, TRAIN_SEQ, cfg.vocab_size, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    out, secs, launched = {}, {}, {}
+    for path, fns in (("kernel", {}), ("plain", {"attention_fn": flash_attention_ref,
+                                                  "ssd_fn": ssd_chunked_ref})):
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        new, metrics = make_train_step(api, run, **fns)(state, batch)
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launched[path] = read_counts(ks, ("flash_attention", "ssd"))
+        out[path] = ({k: float(v) for k, v in metrics.items()},
+                     dict(tree_paths(new.opt_state["mu"])))
+        del new
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = {"kernel": 2 * cfg.num_layers, "plain": 0}
+    if any(n != want[path] for path, counts in launched.items() for n in counts.values()):
+        fail(f"lm_train_check: launches {launched}, want K4 and K5 {want} times")
+    (mk, gk), (mp, gp) = out["kernel"], out["plain"]
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    gnorm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / abs(mp["grad_norm"])
+    leaf_rel = {"/".join(map(str, p)): ((gk[p] - w).abs().max()
+                                        / w.abs().max().clamp_min(1e-30)).item()
+                for p, w in gp.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    rec = {"phase": "lm_train_check", "arch": TRAIN_ARCH, "dtype": "float32",
+           "layers": cfg.num_layers, "batch": 1, "seq": TRAIN_SEQ, "optimizer": "sgd", "remat": "full",
+           "loss": mk["loss"], "plain_loss": mp["loss"], "loss_rel_err": loss_rel,
+           "grad_norm": mk["grad_norm"], "plain_grad_norm": mp["grad_norm"],
+           "grad_norm_rel_err": gnorm_rel, "max_grad_leaf_rel_err": leaf_rel[worst],
+           "worst_leaf": worst, "leaves": len(leaf_rel),
+           "rtol": {"loss": TRAIN_LOSS_RTOL, "grad_norm": TRAIN_GNORM_RTOL,
+                    "grad_leaf": TRAIN_GRAD_RTOL},
+           "step_kernel_s": secs["kernel"], "step_plain_s": secs["plain"],
+           "launches": launched, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if (loss_rel > TRAIN_LOSS_RTOL or gnorm_rel > TRAIN_GNORM_RTOL
+            or leaf_rel[worst] > TRAIN_GRAD_RTOL):
+        fail(f"lm_train_check: kernel path vs plain path beyond bounds: {rec}")
+    del state, out, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
@@ -1473,15 +1840,27 @@ def main() -> int:
 
     # -- 14. K4 and K5 at every shape the lm_serve run gave them -------------
     attn_recs = attn_path_shapes(ks, dev, attn_shapes, "lm_serve")
-    ssd_recs = []
-    for (b_, s_, h_, g_, p_, n_, chunk, dtype), n in sorted(ssd_shapes.items(), key=str):
-        r = check_ssd(ks, dev, b_, s_, h_, g_, p_, n_, chunk, dtype,
-                      label=f"lm_serve x{n}", phase="main_path_shape")
-        r.update(launches=n, path="lm_serve")
-        emit(r)
-        ssd_recs.append(r)
+    ssd_recs = ssd_path_shapes(ks, dev, ssd_shapes, "lm_serve")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # -- 15. train the headline network over two sub-master groups ----------
+    # -- 15. K4 and K5 with their gradients, at the training shapes ---------
+    for dtype in (torch.float32, torch.bfloat16):
+        emit(check_grad_attn(ks, dev, 2, 25, 5, TRAIN_SEQ, TRAIN_SEQ, 64, True, 1024, dtype))
+        emit(check_grad_ssd(ks, dev, 2, TRAIN_SEQ, 50, 1, 64, 16, 256, dtype))
+
+    # -- 16. train hymba-1.5b at full width through the port ----------------
+    emit({"phase": "lm_train", "arch": TRAIN_ARCH, "event": "start",
+          "allocated_gb_before": torch.cuda.memory_allocated() / 1e9})
+    train_rec, (train_attn, train_ssd), train_lm_trace = lm_train(ks, dev)
+    emit(train_rec)
+    emit(lm_train_check(ks, dev))
+    train_attn_recs = attn_path_shapes(ks, dev, train_attn, "lm_train")
+    train_ssd_recs = ssd_path_shapes(ks, dev, train_ssd, "lm_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 17. train the headline network over two sub-master groups ----------
     from repro_torch.core.cluster.hierarchy import HierarchicalCluster
 
     hier_backends = ["cuda", "cuda", "numpy", "cuda", "numpy"]
@@ -1599,7 +1978,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 16. the rest of the model zoo at full width -------------------------
+    # -- 18. the rest of the model zoo at full width -------------------------
     zoo_runs = {}
     for arch, zb, zprompt, znew, k4, check_layers in ZOO:
         emit({"phase": "lm_zoo", "arch": arch, "event": "start",
@@ -1630,10 +2009,13 @@ def main() -> int:
                "hierarchy": (hier_recs["conv2d_dw"], hier_trace)}),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
-              {"lm_serve": (attn_recs, lm_trace), **zoo_runs}, dtype=torch.bfloat16),
+              {"lm_serve": (attn_recs, lm_trace), "lm_train": (train_attn_recs,
+                                                               train_lm_trace),
+               **zoo_runs}, dtype=torch.bfloat16),
         entry("ssd", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
               "src/repro/kernels/ssd.py:75",
-              {"lm_serve": (ssd_recs, lm_trace)}, dtype=torch.float32),
+              {"lm_serve": (ssd_recs, lm_trace),
+               "lm_train": (train_ssd_recs, train_lm_trace)}, dtype=torch.float32),
     ]
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):

@@ -25,6 +25,13 @@ returned as the same kind of view, so neither side copies.
 Tensors on the CPU go to the plain version (``ref.flash_attention_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.
 ``flash_attention.launches`` counts the kernel's launches.
+
+Training: with grad mode on and an input that requires grad,
+``flash_attention`` goes through ``FlashAttentionFunction``, whose
+forward is the same kernel (or, on CPU tensors, the plain version) and
+whose backward is ``flash_attention_vjp``, written out in torch ops.
+Under ``no_grad`` / ``inference_mode`` (serving) no autograd node is
+built.
 """
 from __future__ import annotations
 
@@ -32,9 +39,17 @@ import torch
 
 from repro_torch.kernels._build import flash_attn_fwd_library
 from repro_torch.kernels.conv2d import _DTYPE_CODE, _count, _on_cpu, _raise_on
-from repro_torch.kernels.ref import check_lengths, flash_attention_ref
+from repro_torch.kernels.ref import (
+    _acc_dtype,
+    attention_mask,
+    check_lengths,
+    flash_attention_ref,
+    ieee_fp32_matmul,
+)
 
 MAX_HEAD_DIM = 128
+# query rows whose probabilities the backward recomputes at once
+VJP_TILE = 256
 
 
 def _row_strides(t: torch.Tensor):
@@ -52,7 +67,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     All three float32 or all bfloat16 on one CUDA device (or all on the
     CPU), S >= 1 and T >= 1, T >= S unless ``causal`` is False and
-    ``window`` None, KV dividing H, D <= 128, ``window`` None or >= 1."""
+    ``window`` None, KV dividing H, D <= 128, ``window`` None or >= 1.
+    Differentiable (``FlashAttentionFunction``) where grad mode is on and
+    an input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal=causal, window=window)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window) -> torch.Tensor:
+    """K4 on CUDA tensors, its plain version on CPU tensors."""
     if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if not (q.is_cuda and k.is_cuda and v.is_cuda
@@ -104,3 +130,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, causal: bool, window):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` = ``out``
+    against the cotangent ``dout`` (B, H, S, D), in the inputs' dtypes
+    and shapes, the kv heads' gradients summed over the query heads of
+    their GQA group (head h reads kv head h // (H/KV)).
+
+    Written out in torch ops: per tile of ``VJP_TILE`` query rows, P is
+    recomputed in float32 (float64 stays float64) under the masks of
+    ``ref.attention_mask`` (queries right-aligned against the keys), over
+    the keys that some query of the tile may see (masked scores give
+    P = 0, so the other keys add nothing), then dV += Pᵀ dO, dP = dO Vᵀ,
+    dS = P ∘ (dP − rowsum(dO ∘ O)), dQ = dS K · scale, dK += dSᵀ Q · scale.
+    bf16 inputs are widened first, and the products run in IEEE fp32 on
+    the card.  O enters rowsum(dO ∘ O) in float32: ``out`` where it is
+    already float32 (or float64), else P V recomputed in the tile, since
+    a bf16 ``out`` moves dQ and dK by ~0.2% of their largest value.
+    Memory: O(B·H·tile·T) per call, never the whole (S, T) matrix.
+
+    This is no port of a TPU kernel: no Pallas kernel of the repo
+    computes this gradient (the JAX package differentiates its jnp
+    attention with ``jax.grad``), and it is not K4's plain version
+    either, which is ``ref.flash_attention_ref``."""
+    acc_t = _acc_dtype(q, k, v)
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = d ** -0.5
+    kf = k.to(acc_t).repeat_interleave(group, dim=1)
+    vf = v.to(acc_t).repeat_interleave(group, dim=1)
+    dof = dout.to(acc_t)
+    # rowsum(dO ∘ O): the softmax's Jacobian term, one per query row, from
+    # a float32 O (recomputed per tile where ``out`` is narrower)
+    delta = (dof * out).sum(-1) if out.dtype == acc_t else None
+    mask = attention_mask(s, t, causal, window, q.device)
+    dq = torch.empty((b, h, s, d), dtype=acc_t, device=q.device)
+    dk = torch.zeros((b, h, t, d), dtype=acc_t, device=q.device)
+    dv = torch.zeros((b, h, t, d), dtype=acc_t, device=q.device)
+    with ieee_fp32_matmul(q.device):
+        for i0 in range(0, s, VJP_TILE):
+            i1 = min(i0 + VJP_TILE, s)
+            # keys some query of the tile may see: positions t - s + i
+            lo = max(0, t - s + i0 - window + 1) if window is not None else 0
+            hi = min(t, t - s + i1) if causal else t
+            qt = q[:, :, i0:i1].to(acc_t)
+            dot = dof[:, :, i0:i1]
+            kt, vt = kf[:, :, lo:hi], vf[:, :, lo:hi]
+            scores = (qt @ kt.transpose(-1, -2)) * scale
+            scores = scores.masked_fill(~mask[i0:i1, lo:hi], -1e30)
+            p = torch.softmax(scores, dim=-1)
+            del scores
+            dv[:, :, lo:hi] += p.transpose(-1, -2) @ dot
+            row = (delta[:, :, i0:i1] if delta is not None
+                   else (dot * (p @ vt)).sum(-1))
+            ds = p * ((dot @ vt.transpose(-1, -2)) - row[..., None])
+            del p
+            dq[:, :, i0:i1] = (ds @ kt) * scale
+            dk[:, :, lo:hi] += (ds.transpose(-1, -2) @ qt) * scale
+    dk = dk.reshape(b, kv, group, t, d).sum(2)
+    dv = dv.reshape(b, kv, group, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with a gradient: forward K4 (``_flash_forward``; the
+    plain version on CPU tensors), backward ``flash_attention_vjp``.
+    Saves q, k, v and the output.  No path falls back to the plain
+    version on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _flash_forward(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_vjp"):
+            dq, dk, dv = flash_attention_vjp(q, k, v, out, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None

@@ -25,6 +25,12 @@ operand is aligned; nothing is padded or expanded by a copy.
 Tensors on the CPU go to the plain version (``ref.ssd_chunked_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.
 ``ssd.launches`` counts the kernel's launches.
+
+Training: with grad mode on and an input that requires grad, ``ssd``
+goes through ``SsdFunction``, whose forward is the same kernel (or, on
+CPU tensors, the plain version) and whose backward is ``ssd_vjp``.
+Under ``no_grad`` / ``inference_mode`` (serving) no autograd node is
+built.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 
 from repro_torch.kernels._build import ssd_fwd_library
 from repro_torch.kernels.conv2d import _DTYPE_CODE, _count, _on_cpu, _raise_on
-from repro_torch.kernels.ref import ssd_chunked_ref
+from repro_torch.kernels.ref import _acc_dtype, ssd_chunked_ref
 
 MAX_HEAD_DIM = 128
 # bytes of dynamic shared memory one block may use (the kernel's own
@@ -86,7 +92,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
 
     x, bmat and cmat all float32 or all bfloat16, dt and a float32, on one
     CUDA device (or all on the CPU); G dividing H; P <= 128.  The chunk
-    is ``min(chunk, S)``, as in ``ssd_pallas``."""
+    is ``min(chunk, S)``, as in ``ssd_pallas``.  Differentiable
+    (``SsdFunction``) where grad mode is on and an input requires grad."""
+    ts = (x, dt, a, bmat, cmat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return SsdFunction.apply(x, dt, a, bmat, cmat, chunk)
+    return _ssd_forward(x, dt, a, bmat, cmat, chunk=chunk)
+
+
+def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int):
+    """K5 on CUDA tensors, its plain version on CPU tensors."""
     if _on_cpu(x, dt, a, bmat, cmat):
         return ssd_chunked_ref(x, dt, a, bmat, cmat, min(chunk, x.shape[1]))
     ts = (x, dt, a, bmat, cmat)
@@ -150,3 +166,56 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
 
 
 ssd.launches = 0
+
+
+def ssd_vjp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+            cmat: torch.Tensor, chunk: int, dy, dstate):
+    """Gradients (dx, ddt, da, dbmat, dcmat) of ``ssd(x, dt, a, bmat,
+    cmat, chunk=chunk)`` against the cotangents ``dy`` of y and
+    ``dstate`` of the final state (either may be None), in the inputs'
+    dtypes.
+
+    The counterpart of ``jax.grad`` over the JAX package's
+    ``repro/layers/mamba2.py::_ssd_chunked``: autograd differentiates a
+    float32 recompute (float64 stays float64) of the same chunked form,
+    ``ref.ssd_chunked_ref``, on the inputs widened as K5 widens them.
+    It is called only from ``SsdFunction.backward``, never in place of
+    K5's forward, and it is no port of a TPU kernel: no Pallas kernel of
+    the repo computes this gradient."""
+    ins = (x, dt, a, bmat, cmat)
+    acc_t = _acc_dtype(*ins)
+    with torch.enable_grad():
+        leaves = [t.detach().to(acc_t).requires_grad_(True) for t in ins]
+        y, state = ssd_chunked_ref(*leaves, min(chunk, x.shape[1]))
+        outs, cots = [], []
+        for o, c in ((y, dy), (state, dstate)):
+            if c is not None:
+                outs.append(o)
+                cots.append(c.to(o.dtype))
+        if not outs:
+            return tuple(torch.zeros_like(t) for t in ins)
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, ins))
+
+
+class SsdFunction(torch.autograd.Function):
+    """The SSD scan with a gradient: forward K5 (``_ssd_forward``; the
+    plain version on CPU tensors) -> (y, final state), backward
+    ``ssd_vjp``.  Saves the five inputs.  No path falls back to the plain
+    version on the card."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk):
+        y, state = _ssd_forward(x, dt, a, bmat, cmat, chunk=chunk)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        # an unused output's cotangent arrives as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        with torch.profiler.record_function("ssd_vjp"):
+            grads = ssd_vjp(*ctx.saved_tensors, ctx.chunk, dy, dstate)
+        return (*grads, None)

@@ -32,6 +32,7 @@ from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_fr
 from repro_torch.layers.linear import apply_dense
 from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.norm import apply_norm, init_norm
+from repro_torch.models.remat import remat_block
 
 
 def init_enc_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
@@ -71,19 +72,29 @@ def init_encdec(generator: torch.Generator, cfg: ModelConfig, device):
     }
 
 
+def _remat(fn, remat: str):
+    """The JAX package's encoder-decoder checkpoints each layer whole
+    under ``full`` and under ``dots`` alike."""
+    return remat_block(fn, "full" if remat in ("full", "dots") else remat)
+
+
 def encode(params, frames: torch.Tensor, *, cfg: ModelConfig,
-           attention_fn=flash_attention) -> torch.Tensor:
+           attention_fn=flash_attention, remat: str = "none") -> torch.Tensor:
     """frames: (B, T_enc, d_model) stub frontend embeddings -> the
     encoder's output (B, T_enc, d_model): bidirectional self-attention
     at positions 0..T_enc-1 (RoPE, ``cfg.sliding_window``), then the MLP,
-    in every layer; the final norm."""
+    in every layer; the final norm.  ``remat``: ``none | full | dots``."""
+    def block(lp, xc):
+        h = apply_norm(cfg.norm, lp["ln1"], xc, cfg.norm_eps)
+        xc = xc + attn_lib.apply_attention(lp["attn"], h, cfg=cfg, causal=False,
+                                           attention_fn=attention_fn)
+        h = apply_norm(cfg.norm, lp["ln2"], xc, cfg.norm_eps)
+        return xc + apply_mlp(lp["mlp"], h, cfg=cfg)
+
+    block = _remat(block, remat)
     x = frames.to(cfg.compute_dtype)
     for lp in params["enc_blocks"]:
-        h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
-        x = x + attn_lib.apply_attention(lp["attn"], h, cfg=cfg, causal=False,
-                                         attention_fn=attention_fn)
-        h = apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], h, cfg=cfg)
+        x = block(lp, x)
     return apply_norm(cfg.norm, params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -113,22 +124,28 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor, *,
-                 cfg: ModelConfig, attention_fn=flash_attention) -> torch.Tensor:
+                 cfg: ModelConfig, attention_fn=flash_attention,
+                 remat: str = "none") -> torch.Tensor:
     """Teacher-forced decoder over the full token sequence -> logits
-    (B, S, vocab)."""
+    (B, S, vocab).  ``remat``: ``none | full | dots``."""
+    def block(lp, xc, enc):
+        return _dec_block(lp, xc, enc, cfg=cfg, attention_fn=attention_fn)[0]
+
+    block = _remat(block, remat)
     x = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
     for lp in params["dec_blocks"]:
-        x, _ = _dec_block(lp, x, enc_out, cfg=cfg, attention_fn=attention_fn)
+        x = block(lp, x, enc_out)
     return _logits(params, x, cfg)
 
 
-def encdec_forward(params, batch, *, cfg: ModelConfig,
-                   attention_fn=flash_attention) -> Tuple[torch.Tensor, torch.Tensor]:
+def encdec_forward(params, batch, *, cfg: ModelConfig, attention_fn=flash_attention,
+                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: batch ``frames`` and ``tokens`` -> (logits,
     aux = 0)."""
-    enc_out = encode(params, batch["frames"], cfg=cfg, attention_fn=attention_fn)
+    enc_out = encode(params, batch["frames"], cfg=cfg, attention_fn=attention_fn,
+                     remat=remat)
     logits = decode_train(params, batch["tokens"], enc_out, cfg=cfg,
-                          attention_fn=attention_fn)
+                          attention_fn=attention_fn, remat=remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

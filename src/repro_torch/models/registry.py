@@ -24,7 +24,7 @@ class ModelApi:
     cfg: ModelConfig
     # init(generator, device) -> params
     init: Callable[..., Any]
-    # forward(params, batch, **fns) -> (logits, aux)
+    # forward(params, batch, *, remat="none", **fns) -> (logits, aux)
     forward: Callable[..., Any]
     # prefill(params, batch, *, cache_len, **fns) -> (logits, cache)
     prefill: Callable[..., Any]
@@ -47,8 +47,8 @@ def _lm_batch_prefill(params, batch, *, cfg, cache_len=None, **fns):
 def build_model(cfg: ModelConfig) -> ModelApi:
     """``**fns`` of ``forward`` and ``prefill``: ``attention_fn`` (and,
     for the decoder-only families, ``ssd_fn``), the kernels K4 and K5
-    unless given.  The decoder-only ``forward`` also takes
-    ``positions``."""
+    unless given.  ``forward`` also takes ``remat`` (``none | full |
+    dots``), and the decoder-only ``forward`` ``positions``."""
     if cfg.num_encoder_layers > 0:
         return ModelApi(
             cfg=cfg,

@@ -10,7 +10,9 @@ full-sequence functions take the attention and SSD functions as
 arguments, as ``models/cnn.py::cnn_forward`` takes its conv: by default
 ``kernels.ops.flash_attention`` (K4) and ``kernels.ops.ssd`` (K5), the
 hand-written Hopper kernels on the card; their plain versions give the
-same model in plain torch.  Decode launches neither kernel.  A MoE
+same model in plain torch.  Under autograd both kernels carry gradients
+(``FlashAttentionFunction``, ``SsdFunction``), and ``lm_forward`` takes
+the JAX package's ``remat`` policies.  Decode launches neither kernel.  A MoE
 block (``layers/moe.py``) takes the MLP's place; the VLM projector maps
 the caller's patch embeddings onto the first positions of the sequence.
 The encoder-decoder family is ``models/encdec.py``.
@@ -31,6 +33,7 @@ from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_fr
 from repro_torch.layers.linear import apply_dense, init_dense
 from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.norm import apply_norm, init_norm
+from repro_torch.models.remat import remat_block
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -186,18 +189,26 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
 def lm_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                patches: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None,
-               attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, torch.Tensor]:
+               attention_fn=flash_attention, ssd_fn=ssd,
+               remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Train / prefill forward over a full sequence, at positions 0..S-1
     or at the caller's ``positions`` (B, S).  Returns (logits (B, S,
     vocab), aux): aux, the MoE balance loss summed over the layers (0
-    without MoE), float32."""
+    without MoE), float32.  ``remat`` (``none | full | dots``) is each
+    block's rematerialisation under autograd (``models/remat.py``)."""
     x = _embed(params, tokens, cfg, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["blocks"]:
-        x, _, a = apply_block(lp, x, cfg=cfg, positions=positions,
+
+    def block(lp, xc):
+        y, _, a = apply_block(lp, xc, cfg=cfg, positions=positions,
                               attention_fn=attention_fn, ssd_fn=ssd_fn)
-        if a is not None:
-            aux = aux + a
+        return y, (torch.zeros((), dtype=torch.float32, device=y.device)
+                   if a is None else a)
+
+    block = remat_block(block, remat)
+    for lp in params["blocks"]:
+        x, a = block(lp, x)
+        aux = aux + a
     return _head(params, x, cfg, softcap=True), aux
 
 

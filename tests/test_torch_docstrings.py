@@ -1,6 +1,7 @@
 """The docstring gate (tools/check_docstrings.py) over the port: every
-public symbol of ``repro_torch.core.cluster`` (the hierarchy included)
-and ``repro_torch.serve`` is documented, as the JAX package's are
+public symbol of ``repro_torch.core.cluster`` (the hierarchy included),
+``repro_torch.serve`` and the LM training packages (``train``,
+``optim``, ``checkpoint``) is documented, as the JAX package's are
 (tests/test_docstring_gate.py)."""
 import os
 import sys
@@ -11,7 +12,8 @@ sys.path.insert(0, os.fspath(REPO))
 
 from tools import check_docstrings  # noqa: E402
 
-ROOTS = ["src/repro_torch/core/cluster", "src/repro_torch/serve"]
+ROOTS = ["src/repro_torch/core/cluster", "src/repro_torch/serve",
+         "src/repro_torch/train", "src/repro_torch/optim", "src/repro_torch/checkpoint"]
 
 
 def test_port_cluster_and_serve_api_fully_documented(capsys):

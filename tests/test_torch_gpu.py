@@ -750,3 +750,111 @@ def test_lm_prefill_and_decode_on_the_card_match_the_plain_path(dev):
         want, want_cache = api.decode_step(params, want_cache, toks[:, t : t + 1])
         torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
     assert (flash_attention.launches, ssd.launches) == mid
+
+
+# ---------------------------------------------------------------------------
+# gradients through K4 and K5, and the train step on the card
+
+GRAD_ATTN_CASES = [
+    (2, 4, 2, 300, 300, 64, True, 64),    # a ragged last query tile, a window
+    (1, 6, 2, 90, 200, 32, True, None),   # S < T, causal, GQA
+    (2, 2, 2, 130, 70, 16, False, None),  # S > T, no mask
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window", GRAD_ATTN_CASES)
+def test_flash_attention_gradients_on_the_card(dev, b, h, kv, s, t, d, causal, window,
+                                               dtype):
+    """With grad on, ``flash_attention`` runs K4 forward (one launch) and
+    ``flash_attention_vjp`` backward (no launch); dq, dk, dv against
+    float64 autograd through the plain version (bf16 gradients against
+    the reference rounded to bf16: ``BF16_OUT_TOL``)."""
+    tdtype, atol = TOL[dtype]
+    gen = torch.Generator(device=dev).manual_seed(s + t)
+    q, k, v = (torch.randn((b, n, heads, d), generator=gen, device=dev).to(tdtype)
+               .transpose(1, 2).requires_grad_(True)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    dout = torch.randn((b, h, s, d), generator=gen, device=dev).to(tdtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.grad_fn is not None and flash_attention.launches == before + 1
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    refs = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    flash_attention_ref(*refs, causal=causal, window=window).backward(dout.double())
+    for x, r in zip((q, k, v), refs):
+        assert x.grad.dtype == tdtype and x.grad.shape == x.shape
+        want, tol = r.grad, (2e-4, 0.05)
+        if tdtype == torch.bfloat16:
+            want, tol = want.to(tdtype).double(), BF16_OUT_TOL
+        torch.testing.assert_close(x.grad.double(), want, atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [(2, 300, 4, 2, 32, 16, 128),
+                                               (1, 700, 6, 6, 64, 16, 256)])
+def test_ssd_gradients_on_the_card(dev, b, s, h, g, p, n, chunk, dtype):
+    """With grad on, ``ssd`` runs K5 forward (one launch) and ``ssd_vjp``
+    backward (no launch); every input gradient against float64 autograd
+    through the plain version, at K5's 10x atol."""
+    tdtype, atol = TOL[dtype]
+    ins = [t.requires_grad_(True) for t in _ssd_inputs_on(dev, tdtype, b, s, h, g, p, n)]
+    gen = torch.Generator(device=dev).manual_seed(s)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(tdtype)
+    dstate = torch.randn((b, h, p, n), generator=gen, device=dev)
+    before = ssd.launches
+    y, state = ssd(*ins, chunk=chunk)
+    assert ssd.launches == before + 1
+    torch.autograd.backward((y, state), (dy, dstate))
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    refs = [t.detach().double().requires_grad_(True) for t in ins]
+    torch.autograd.backward(ssd_chunked_ref(*refs, min(chunk, s)),
+                            (dy.double(), dstate.double()))
+    for x, r in zip(ins, refs):
+        assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
+        want, tol = r.grad, (10 * 2e-4, 0.05)
+        if x.dtype == torch.bfloat16:
+            want, tol = want.to(torch.bfloat16).double(), (10 * 2e-4, BF16_OUT_TOL[1])
+        torch.testing.assert_close(x.grad.double(), want, atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_on_the_card_matches_the_plain_path(dev, remat):
+    """Two steps of reduced hymba-1.5b on the card (sgd, 2
+    microbatches): K4 and K5 each launched per layer per microbatch,
+    twice under remat full; losses, grad norms and params against the
+    same steps through the kernels' plain versions."""
+    from repro_torch.configs import RunConfig, get_config, reduced_for_smoke
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_for_smoke(get_config("hymba-1.5b"))
+    api = build_model(cfg)
+    run = RunConfig(optimizer="sgd", learning_rate=0.1, grad_accum=2, remat=remat)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             zip(("tokens", "labels"),
+                 np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 4, 64)))}
+    plain = {"attention_fn": flash_attention_ref, "ssd_fn": ssd_chunked_ref}
+    states = {}
+    for path, fns in (("kernel", {}), ("plain", plain)):
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0), api, run, dev)
+        step = make_train_step(api, run, **fns)
+        before = (flash_attention.launches, ssd.launches)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launched = (flash_attention.launches - before[0], ssd.launches - before[1])
+        per_step = 2 * cfg.num_layers * (2 if remat == "full" else 1)
+        assert launched == ((2 * per_step,) * 2 if path == "kernel" else (0, 0))
+        states[path] = (state, metrics)
+    (sk, mk), (sp, mp) = states["kernel"], states["plain"]
+    for a, b in zip(mk, mp):
+        assert np.isclose(a["loss"], b["loss"], rtol=1e-5)
+        assert np.isclose(a["grad_norm"], b["grad_norm"], rtol=1e-4)
+    for a, b in zip(tree_leaves(sk.params), tree_leaves(sp.params)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

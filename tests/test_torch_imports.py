@@ -57,6 +57,9 @@ def test_entry_points_load_no_jax_and_no_repro_at_run_time():
         "import repro_torch.core.cluster.hierarchy, repro_torch.core.costmodel\n"
         "import repro_torch.core.simulator, repro_torch.core.master_slave\n"
         "import repro_torch.layers.moe, repro_torch.models.encdec\n"
+        "import repro_torch.launch.train, repro_torch.train.step, repro_torch.train.loss\n"
+        "import repro_torch.optim.optimizers, repro_torch.optim.schedule\n"
+        "import repro_torch.checkpoint.io, repro_torch.tree, repro_torch.models.remat\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
