@@ -142,11 +142,41 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    the traced and untraced runs, the prefill's K4 launches and shapes,
    no launch in decode; ``lm_check`` in fp32 (whisper at full depth,
    moonshot cut to 2 layers and llava to 4 to fit fp32 on the card);
-   K4 at every shape the runs gave it.
+   K4 at every shape the runs gave it;
+19. mesh_train — lm_train's run (``launch/train.py::train``, its config,
+   seed and batches) for 2 steps under the card's (1, 1) mesh
+   (``launch/mesh.py::make_host_mesh``, an NCCL group of one) with
+   ``tp_mode="megatron"``: the state and batches DTensors, K4 and K5 on
+   the ranks' shards through ``local_map``, in a profiler trace of the
+   card.  K4 and K5 128 launches a step, the trace's equal to the
+   wrappers'; the losses against lm_train's (step 1 within 1e-6, step 2
+   within lm_train's own rerun bound, 1e-3); s/step and peak memory
+   beside lm_train's;
+20. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
+   the same mesh: its 4 x 16 tokens must equal lm_serve's;
+21. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
+   forward's logits through the MoE's expert-parallel mesh path (its
+   ``local_map`` body and all-reduce over ``model``) against the
+   mesh-less path's, within ``LM_RTOL`` of the largest logit;
+22. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
+   (``core/conv_shard.py``'s kernel-sharded conv: K1, K2 and K3 through
+   ``local_map``) on the mesh, cifar_cnn_500_1500, batch 32, gather
+   rules, held against phase 7's float64 step; K1-K3 at its shapes;
+   then the §4.1.1 probe (``core/profiling.py``) on the card;
+23. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
+   subprocesses started together (each owns its fake process group):
+   mamba2-370m train_4k on (16, 16) and decode_32k on (2, 16, 16), both
+   under 80 GB a device; hymba-1.5b train_4k in megatron and gather;
+   the CNN at batch 1024; and on the card's (1, 1) mesh mesh_train's
+   exact shape (one microbatch, 2 x 4,096), whose roofline bound and
+   counted peak are printed beside mesh_train's half step and
+   ``max_memory_allocated``, with their ratios.  The records are also
+   written under the gitignored ``build/chip_smoke_dryrun/``.
 
 Every wrapper's launch count is set to 0 just before a main-path run
 (serve, train, lm_serve, each lm_train run, the in-process hierarchy,
-each lm_zoo run) and read just after.
+each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn) and read
+just after.
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -229,6 +259,21 @@ TRAIN_TRACED_STEPS = 1
 # the loss, the gradient norm, and each clipped-gradient leaf against
 # its largest value (lm_check's rule)
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+# mesh_train: lm_train's run on the card's (1, 1) mesh for 2 steps.  Its
+# step-1 loss is expected bit-equal to lm_train's (the same local ops on
+# the same tensors), bounded at 1e-6 relative in case a DTensor op
+# reduces in another order; step 2 follows a backward whose atomic adds
+# vary between runs, so it takes lm_train's own rerun bound, 1e-3
+MESH_TRAIN_STEPS = 2
+MESH_LOSS_RTOL = (1e-6, 1e-3)
+# short traces (mesh_cnn's, traced_grids'): tiny kernels launched before
+# the measured ones, in place of the first records a trace that follows
+# a large one can lose (PyTorch 2.11)
+TRACE_PAD_KERNELS = 2000
+# mesh_moe: moonshot cut to 2 layers (lm_check's cut)
+MESH_MOE_LAYERS = 2
+# each dry-run subprocess (they run together, on the host's cores)
+DRYRUN_TIMEOUT_S = 420
 # kernels that must build without spills (ptxas's report)
 NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dx_kernel", "conv2d_dw_kernel")
 
@@ -346,11 +391,15 @@ def traced_grids(fn, names, calls: int = 3) -> dict:
     """The launch grid of each kernel of ``names`` that ``fn`` runs on
     the card, from the profiler's trace (written under the gitignored
     build/) of ``calls`` calls: a trace that follows another in the same
-    process can lose its first kernel records.  Fails where a kernel is
-    not in the trace or its grids differ."""
+    process can lose its first kernel records, so ``TRACE_PAD_KERNELS``
+    small kernels go first.  Fails where a kernel is not in the trace or
+    its grids differ."""
     from torch.profiler import ProfilerActivity, profile
 
+    pad = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD_KERNELS):
+            pad.add_(1)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1119,7 +1168,7 @@ def serve_lm(ks, dev, arch, lm_batch, prompt, new, per_prefill, phase):
                             "busy_share": decode_trace["busy_share"],
                             "untraced_us_per_device_event":
                                 decode_ms * 1e3 / events_per_step},
-           "tokens_head": tokens[:2, :8].tolist(),
+           "tokens_head": tokens[:2, :8].tolist(), "tokens": tokens.tolist(),
            "untraced_tokens_equal": bool(torch.equal(tokens, again))}
     del engine, lm_inputs, tokens, again
     gc.collect()
@@ -1468,6 +1517,356 @@ def lm_train_check(ks, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# -- the mesh layer (phases 19-23) -------------------------------------------
+
+
+def mesh_train(ks, dev, mesh, lm_rec, attn_recs, ssd_recs):
+    """lm_train's run (``launch/train.py::train``: hymba-1.5b at full
+    width in bf16, batch 4 x 4,096 in 2 microbatches, adam at lr 1e-3,
+    cosine, remat full, its seed) under the card's (1, 1) mesh with
+    ``tp_mode="megatron"``: the state and batches DTensors, K4 and K5 on
+    the ranks' shards through ``local_map``, ``MESH_TRAIN_STEPS`` steps
+    in a profiler trace of the card.  K4 and K5 128 launches a step and
+    the trace's equal to the wrappers'; the losses against lm_train's
+    (``MESH_LOSS_RTOL``).  Returns (the record, the K4 and K5 shape
+    records of this path, the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    cfg = get_config(TRAIN_ARCH)
+    per_step = TRAIN_ACCUM * cfg.num_layers * 2
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3, optimizer="adam",
+              grad_accum=TRAIN_ACCUM, full=True, seed=SEED, device=dev, log_every=1,
+              log=lambda line: None, tp_mode="megatron", mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        state, recs = train(TRAIN_ARCH, steps=MESH_TRAIN_STEPS, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(ks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    placements = sorted({str(tuple(type(p).__name__ for p in t.placements))
+                         for t in _leaves(state.params)})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = device_trace(prof, recs[-1]["elapsed_s"])
+    del prof
+    for kind in ("flash_attention", "ssd"):
+        if counts[kind] != per_step * MESH_TRAIN_STEPS:
+            fail(f"mesh_train: {kind} launched {counts[kind]} times in "
+                 f"{MESH_TRAIN_STEPS} steps, want {per_step} a step")
+        if trace["kernels"][kind]["launches"] != counts[kind]:
+            fail(f"mesh_train: the trace holds {trace['kernels'][kind]['launches']} "
+                 f"{kind} launches, the wrapper counted {counts[kind]}")
+    if any(counts[k] for k in CONV_KINDS):
+        fail(f"mesh_train: a conv kernel ran on the language model's path: {counts}")
+    want = lm_rec["losses"][:MESH_TRAIN_STEPS]
+    got = [r["loss"] for r in recs]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if not all(np.isfinite(got)) or any(r > t for r, t in zip(rel, MESH_LOSS_RTOL)):
+        fail(f"mesh_train: losses {got} against lm_train's {want} (rel {rel}, "
+             f"bounds {MESH_LOSS_RTOL})")
+    s_per_step = recs[-1]["elapsed_s"] - recs[-2]["elapsed_s"]
+    rec = {"phase": "mesh_train", "arch": TRAIN_ARCH, "mesh": "1x1",
+           "tp_mode": "megatron", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "grad_accum": TRAIN_ACCUM, "steps": MESH_TRAIN_STEPS,
+           "losses": got, "lm_train_losses": want, "loss_rel_diff": rel,
+           "bit_equal": [a == b for a, b in zip(got, want)],
+           "loss_rtol": list(MESH_LOSS_RTOL),
+           "elapsed_s": [r["elapsed_s"] for r in recs],
+           "s_per_step": s_per_step, "lm_train_s_per_step": lm_rec["s_per_step_2_to_4"],
+           "mesh_overhead": s_per_step / lm_rec["s_per_step_2_to_4"],
+           "peak_memory_gb": peak_gb, "lm_train_peak_memory_gb": lm_rec["peak_memory_gb"],
+           "run_s": run_s, "launches": counts, "param_placements": placements,
+           "busy_share": trace["busy_share"],
+           "k4_ms": trace["kernels"]["flash_attention"]["ms"],
+           "k5_ms": trace["kernels"]["ssd"]["ms"],
+           "note": "the (1, 1) mesh: every placement Replicate, K4 and K5 on the "
+                   "local shards (here the whole tensors) through local_map"}
+    per_shape = counts["flash_attention"] // max(1, len(attn_recs))
+    path_attn = [dict(r, launches=per_shape, path="mesh_train") for r in attn_recs]
+    path_ssd = [dict(r, launches=counts["ssd"] // max(1, len(ssd_recs)), path="mesh_train")
+                for r in ssd_recs]
+    return rec, (path_attn, path_ssd), trace
+
+
+def mesh_serve(ks, dev, mesh, lm_rec, arch, lm_batch, prompt, new):
+    """lm_serve's run (hymba-1.5b --full, its batch, prompt and 16 greedy
+    tokens) through ``ServeEngine(mesh=...)`` on the card's (1, 1) mesh
+    (``launch/serve.py::load`` with the mesh, megatron rules): its tokens
+    must equal lm_serve's, K4 and K5 once a layer in the prefill, none in
+    decode."""
+    from repro_torch.launch.serve import load
+
+    engine, inputs = load(arch, full=True, seed=SEED, batch=lm_batch, prompt_len=prompt,
+                          device=dev, mesh=mesh, tp_mode="megatron")
+    timings = {}
+    reset_counts(ks)
+    t0 = time.perf_counter()
+    tokens = engine.generate(inputs, max_new_tokens=new, timings=timings)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts(ks)
+    del engine, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = 32
+    if counts["flash_attention"] != layers or counts["ssd"] != layers:
+        fail(f"mesh_serve: launches {counts}, want K4 and K5 {layers} each (the prefill)")
+    if tokens.tolist() != lm_rec["tokens"]:
+        fail(f"mesh_serve: tokens {tokens.tolist()} differ from lm_serve's "
+             f"{lm_rec['tokens']}")
+    steps = timings["decode_steps"]
+    return {"phase": "mesh_serve", "arch": arch, "mesh": "1x1", "tp_mode": "megatron",
+            "batch": lm_batch, "prompt_len": prompt, "new_tokens": new,
+            "tokens_equal_lm_serve": True, "tokens_head": tokens[:2, :8].tolist(),
+            "prefill_s": timings["prefill_s"],
+            "decode_ms_per_token": timings["decode_s"] / steps * 1e3,
+            "lm_serve_prefill_s": lm_rec["prefill_s"],
+            "lm_serve_decode_ms_per_token": lm_rec["decode_ms_per_token"],
+            "run_s": run_s, "launches": counts}
+
+
+def mesh_moe(ks, dev, mesh):
+    """moonshot-v1-16b-a3b at full width cut to ``MESH_MOE_LAYERS`` layers
+    (the MoE's mesh path is per layer; the whole model's 56 GB already
+    serves in lm_zoo), lm_zoo's batch and prompt, in bf16: the forward's
+    logits through the expert-parallel mesh path (``layers/moe.py``'s
+    ``local_map`` body and its all-reduce over ``model``, on the card's
+    (1, 1) mesh) against the mesh-less path's, within ``LM_RTOL`` of the
+    largest logit."""
+    import repro_torch.layers.moe as moe_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.registry import build_model, rules_for_mode
+    from repro_torch.sharding.partitioning import (
+        distribute_tree,
+        mesh_context,
+        param_sharding_for_tree,
+    )
+
+    arch, zb, zprompt = "moonshot-v1-16b-a3b", 4, 2048
+    cfg = get_config(arch).with_(num_layers=MESH_MOE_LAYERS)
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    inputs = make_batch(cfg, seed=SEED, batch=zb, prompt_len=zprompt, device=dev)
+    mesh_calls = [0]
+    orig = moe_lib._apply_moe_mesh
+
+    def counted(*a, **k):
+        mesh_calls[0] += 1
+        return orig(*a, **k)
+
+    with torch.no_grad():
+        reset_counts(ks)
+        want = api.forward(params, inputs)[0]
+        plain_counts = read_counts(ks)
+        rules = rules_for_mode("megatron")
+        dparams = distribute_tree(params, mesh, param_sharding_for_tree(
+            mesh, api.param_axes(), rules, params))
+        batch = make_global_batch({k: v.cpu().numpy() for k, v in inputs.items()}, mesh,
+                                  device=dev)
+        moe_lib._apply_moe_mesh = counted
+        try:
+            reset_counts(ks)
+            t0 = time.perf_counter()
+            with mesh_context(mesh):
+                got = api.forward(dparams, batch, rules=rules, mesh=mesh)[0].to_local()
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+            mesh_counts = read_counts(ks)
+        finally:
+            moe_lib._apply_moe_mesh = orig
+        scale = max(want[i].float().abs().max().item() for i in range(zb))
+        err = max((got[i].float() - want[i].float()).abs().max().item() for i in range(zb))
+    del params, dparams, want, got, batch, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh_calls[0] != MESH_MOE_LAYERS:
+        fail(f"mesh_moe: the MoE mesh path ran {mesh_calls[0]} times, want "
+             f"{MESH_MOE_LAYERS}")
+    if mesh_counts["flash_attention"] != MESH_MOE_LAYERS:
+        fail(f"mesh_moe: K4 launched {mesh_counts} on the mesh path")
+    if not err <= LM_RTOL * scale:
+        fail(f"mesh_moe: logits max |diff| {err} > {LM_RTOL} x {scale}")
+    return {"phase": "mesh_moe", "arch": arch, "layers": MESH_MOE_LAYERS,
+            "experts": cfg.moe.num_experts, "top_k": cfg.moe.experts_per_token,
+            "dispatch": cfg.moe.dispatch, "mesh": "1x1", "tp_mode": "megatron",
+            "batch": zb, "prompt_len": zprompt, "dtype": str(cfg.compute_dtype),
+            "max_abs_diff": err, "max_abs_logit": scale, "rtol": LM_RTOL,
+            "rel_err": err / scale, "mesh_path_calls": mesh_calls[0],
+            "mesh_forward_s": mesh_s, "launches_mesh": mesh_counts,
+            "launches_plain": plain_counts}
+
+
+def mesh_cnn(ks, dev, mesh, ref_losses, ref_params):
+    """One step of ``launch/dryrun_cnn.py``'s train step
+    (``make_cnn_train_step``: ``cnn_loss`` with ``core/conv_shard.py``'s
+    kernel-sharded conv, SGD at lr 0.05) on the card's (1, 1) mesh:
+    cifar_cnn_500_1500, batch 32, gather rules, from phase 7's params and
+    batch, in a profiler trace.  K1, K2 and K3 each launched through the
+    conv's ``local_map`` and the trace's counts equal to the wrappers';
+    the loss and params against phase 7's float64 step (1e-5, 1e-4).
+    Then the §4.1.1 probe (``core/profiling.py``) on the card.  Returns
+    (the record, the shape records of this path, the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.profiling import probe_devices
+    from repro_torch.launch.dryrun_cnn import make_cnn_train_step, place_cnn_inputs
+    from repro_torch.launch.hetero import train_inputs
+    from repro_torch.models.cnn import make_cnn_config
+    from repro_torch.models.registry import rules_for_mode
+
+    cfg = make_cnn_config(500, 1500)
+    batch, lr = 32, 0.05
+    rules = rules_for_mode("gather")
+    params, images, labels = train_inputs(cfg, batch, dev)
+    dp, di, dl = place_cnn_inputs(params, images, labels, mesh, rules)
+    step = make_cnn_train_step(cfg, rules, mesh, lr=lr)
+    pad = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a trace that follows a large one can lose its first kernel
+        # records (PyTorch 2.11): small kernels first take their place
+        for _ in range(TRACE_PAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        new, loss, _ = step(dp, di, dl)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(ks, CONV_KINDS)
+    trace = device_trace(prof, run_s)
+    del prof
+    for kind, n in counts.items():
+        if n == 0:
+            fail(f"mesh_cnn: the {kind} kernel was never launched")
+        if trace["kernels"][kind]["launches"] != n:
+            fail(f"mesh_cnn: the trace holds {trace['kernels'][kind]['launches']} {kind} "
+                 f"launches, the wrapper counted {n}")
+    local = {l: {n: t.to_local() for n, t in d.items()} for l, d in new.items()}
+    loss_err = abs(float(loss.to_local()) - ref_losses[0])
+    param_err = params_err(local, ref_params[0])
+    if loss_err > LOSS_ATOL or param_err > PARAM_ATOL:
+        fail(f"mesh_cnn: vs the float64 step, loss err {loss_err} (atol {LOSS_ATOL}), "
+             f"param err {param_err} (atol {PARAM_ATOL})")
+    probe = probe_devices(2, slowdowns=[1.0, 2.0])
+    shapes_fwd = {(batch, 32, 32, 3, 500, 5): 1, (batch, 16, 16, 500, 1500, 5): 1}
+    shapes_dx = {(batch, 16, 16, 500, 1500, 5): 1}
+    recs = {"conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, shapes_fwd,
+                                      "main_path_shape", "mesh_cnn"),
+            "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, shapes_dx,
+                                     "main_path_shape", "mesh_cnn"),
+            "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, shapes_fwd,
+                                     "main_path_shape", "mesh_cnn")}
+    for kind, rs in recs.items():
+        if sum(r["launches"] for r in rs) != counts[kind]:
+            fail(f"mesh_cnn: {counts[kind]} {kind} launches, the step's shapes say "
+                 f"{sum(r['launches'] for r in rs)}")
+    rec = {"phase": "mesh_cnn", "net": "cifar_cnn_500_1500", "mesh": "1x1",
+           "tp_mode": "gather", "batch": batch, "lr": lr,
+           "loss": float(loss.to_local()), "f64_loss": ref_losses[0], "loss_err": loss_err,
+           "max_param_err": param_err, "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+           "run_s": run_s, "launches": counts, "trace": trace,
+           "probe_s": probe, "probe_slowdowns": [1.0, 2.0]}
+    return rec, recs, trace
+
+
+def dryrun_records(mesh_train_rec):
+    """``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in subprocesses
+    (each needs a process whose default group is its own), all started
+    together: (a) tests/test_dryrun.py's pair (mamba2-370m train_4k on
+    (16, 16), decode_32k on (2, 16, 16)), hymba-1.5b train_4k in megatron
+    and gather, and the CNN at batch 1024 on (16, 16); (b) on the card's
+    (1, 1) mesh, mesh_train's exact shape (one microbatch, 2 x 4,096),
+    whose roofline bound and peak bytes are set beside mesh_train's
+    measured half step and peak memory.  Every subprocess exits 0; the
+    pair's per-device footprint under the card's 80 GB.  Returns the
+    phase's records."""
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    runs = {
+        "mamba2 train_4k 16x16": dry + ["--arch", "mamba2-370m", "--shape", "train_4k",
+                                        "--mesh", "single"],
+        "mamba2 decode_32k 2x16x16": dry + ["--arch", "mamba2-370m", "--shape",
+                                            "decode_32k", "--mesh", "multi"],
+        "hymba train_4k megatron": dry + ["--arch", TRAIN_ARCH, "--shape", "train_4k",
+                                          "--tp-mode", "megatron"],
+        "hymba train_4k gather": dry + ["--arch", TRAIN_ARCH, "--shape", "train_4k",
+                                        "--tp-mode", "gather"],
+        "cnn b1024": [sys.executable, "-m", "repro_torch.launch.dryrun_cnn"],
+        "host mesh_train shape": dry + [
+            "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "host",
+            "--global-batch", str(TRAIN_BATCH // TRAIN_ACCUM), "--seq-len", str(TRAIN_SEQ)],
+    }
+    procs = {}
+    t0 = time.perf_counter()
+    for name, cmd in runs.items():
+        path = out_dir / (re.sub(r"\W+", "_", name) + ".jsonl")
+        path.unlink(missing_ok=True)
+        log = open(out_dir / (re.sub(r"\W+", "_", name) + ".log"), "w")
+        procs[name] = (subprocess.Popen(cmd + ["--out", str(path)], env=env, cwd=ROOT,
+                                        stdout=log, stderr=subprocess.STDOUT), path, log)
+    recs = {}
+    for name, (proc, path, log) in procs.items():
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p, _, _ in procs.values():
+                p.kill()
+            fail(f"dryrun: {name} ran past {DRYRUN_TIMEOUT_S} s")
+        log.close()
+        if rc != 0 or not path.exists():
+            tail = (out_dir / (path.stem + ".log")).read_text()[-3000:]
+            fail(f"dryrun: {name} exited {rc}: {tail}")
+        recs[name] = [json.loads(line) for line in path.read_text().splitlines()]
+    wall_s = time.perf_counter() - t0
+    out = []
+    for name in ("mamba2 train_4k 16x16", "mamba2 decode_32k 2x16x16"):
+        (r,) = recs[name]
+        if not (r["flops_per_device"] > 0 and r["hbm_bytes_per_device"] < 80e9):
+            fail(f"dryrun: {name}: flops {r['flops_per_device']}, "
+                 f"hbm {r['hbm_bytes_per_device']} (want > 0 and < 80 GB)")
+    for name, rs in recs.items():
+        for r in rs:
+            out.append({"phase": "dryrun", "run": name, **{
+                k: r.get(k) for k in ("arch_id", "shape", "mesh", "tp_mode", "chips",
+                                      "flops_per_device", "bytes_per_device",
+                                      "collective_bytes_per_device", "collective_breakdown",
+                                      "compute_s", "memory_s", "collective_s", "dominant",
+                                      "bound_s", "useful_flops_ratio", "mfu_upper_bound",
+                                      "hbm_bytes_per_device", "compile_s", "count_s")}})
+    (host,) = recs["host mesh_train shape"]
+    half_step = mesh_train_rec["s_per_step"] / TRAIN_ACCUM
+    peak = mesh_train_rec["peak_memory_gb"] * 1e9
+    out.append({"phase": "dryrun", "run": "roofline vs card",
+                "shape": host["shape"], "mesh": host["mesh"], "tp_mode": host["tp_mode"],
+                "bound_s": host["bound_s"], "dominant": host["dominant"],
+                "compute_s": host["compute_s"], "memory_s": host["memory_s"],
+                "collective_s": host["collective_s"],
+                "measured_half_step_s": half_step,
+                "bound_over_measured": host["bound_s"] / half_step,
+                "peak_bytes": host["hbm_bytes_per_device"],
+                "max_memory_allocated": peak,
+                "peak_over_measured": host["hbm_bytes_per_device"] / peak,
+                "note": "half of mesh_train's s/step (2 microbatches a step) against "
+                        "the counted step of one microbatch (its optimizer update "
+                        "counted whole); peak: mesh_train's max_memory_allocated",
+                "wall_s": wall_s})
+    return out
 
 
 def main() -> int:
@@ -1993,29 +2392,52 @@ def main() -> int:
                                       z_trace)
         torch.cuda.empty_cache()
 
+    # -- 19-22. the mesh layer on the card's (1, 1) mesh ---------------------
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh("cuda")
+    mt_rec, (mt_attn, mt_ssd), mt_trace = mesh_train(ks, dev, mesh, train_rec,
+                                                     train_attn_recs, train_ssd_recs)
+    emit(mt_rec)
+    emit(mesh_serve(ks, dev, mesh, lm_rec, "hymba-1.5b", lm_batch, prompt, new))
+    emit(mesh_moe(ks, dev, mesh))
+    mc_rec, mc_recs, mc_trace = mesh_cnn(ks, dev, mesh, ref_losses, ref_params)
+    emit(mc_rec)
+    torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 23. the dry run at 256 / 512 GPUs and on the card's mesh -----------
+    for r in dryrun_records(mt_rec):
+        emit(r)
+
     kernels = [
         entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
               "src/repro/kernels/conv2d.py:78",
               {"serve": (serve_recs, serve_trace),
                "train": (train_recs["conv2d_fwd"], train_trace),
-               "hierarchy": (hier_recs["conv2d_fwd"], hier_trace)}),
+               "hierarchy": (hier_recs["conv2d_fwd"], hier_trace),
+               "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace)}),
         entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:94",
               {"train": (train_recs["conv2d_dx"], train_trace),
-               "hierarchy": (hier_recs["conv2d_dx"], hier_trace)}),
+               "hierarchy": (hier_recs["conv2d_dx"], hier_trace),
+               "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace)}),
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
               {"train": (train_recs["conv2d_dw"], train_trace),
-               "hierarchy": (hier_recs["conv2d_dw"], hier_trace)}),
+               "hierarchy": (hier_recs["conv2d_dw"], hier_trace),
+               "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace)}),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
               {"lm_serve": (attn_recs, lm_trace), "lm_train": (train_attn_recs,
                                                                train_lm_trace),
-               **zoo_runs}, dtype=torch.bfloat16),
+               **zoo_runs, "mesh_train": (mt_attn, mt_trace)}, dtype=torch.bfloat16),
         entry("ssd", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
               "src/repro/kernels/ssd.py:75",
               {"lm_serve": (ssd_recs, lm_trace),
-               "lm_train": (train_ssd_recs, train_lm_trace)}, dtype=torch.float32),
+               "lm_train": (train_ssd_recs, train_lm_trace),
+               "mesh_train": (mt_ssd, mt_trace)}, dtype=torch.float32),
     ]
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):

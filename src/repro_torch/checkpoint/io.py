@@ -9,8 +9,9 @@ So a tree the port writes in the JAX package's layout
 (``convert.lm_params_to_numpy`` and ``opt_state_to_numpy``) restores
 under ``repro.checkpoint.io.restore_checkpoint``, and a checkpoint the
 JAX package wrote restores here, into torch tensors (bf16 read back
-through ``Tensor.view``).  Placing leaves on a mesh (``shardings``)
-comes with the mesh.
+through ``Tensor.view``).  ``restore_checkpoint(shardings=..., mesh=...)``
+lays the restored leaves out on a mesh (a tree of DTensor placements,
+as ``sharding/partitioning.py::param_sharding_for_tree`` gives).
 """
 from __future__ import annotations
 
@@ -77,9 +78,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
-                       device="cpu") -> Any:
+                       device="cpu", shardings: Any = None, mesh=None) -> Any:
     """Load a checkpoint (the latest step unless ``step``) as a tree of
-    dicts of torch tensors on ``device``, each in the manifest's dtype."""
+    dicts of torch tensors on ``device``, each in the manifest's dtype;
+    with ``shardings`` (a matching tree of DTensor placements) and a
+    ``mesh``, as DTensors laid out on it."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -95,4 +98,9 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
             if want != str(v.dtype):
                 v = BitView(v, want)
             flat[k] = leaf_from_numpy(v, device)
-    return _unflatten(flat)
+    tree = _unflatten(flat)
+    if shardings is not None:
+        from repro_torch.sharding.partitioning import distribute_tree
+
+        tree = distribute_tree(tree, mesh, shardings)
+    return tree

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/configs/__init__.py``: the paper's four CIFAR CNN
 sizes (``cifar_cnn.CONFIGS``) and the ten model-zoo architectures, one
-small data module each.  ``input_specs`` comes with the dry runs.
+small data module each; the dry runs' input shapes (``INPUT_SHAPES``)
+and their stand-ins (``input_specs``, ``shapes_for_arch``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     AudioStubConfig,
     CNNConfig,
+    INPUT_SHAPES,
+    InputShape,
     ModelConfig,
     MoEConfig,
     RunConfig,
@@ -32,6 +35,8 @@ _ARCH_MODULES = {
     "mixtral-8x22b": "mixtral_8x22b",
 }
 
+ARCH_IDS = list(_ARCH_MODULES)
+
 
 def get_config(arch_id: str):
     if arch_id.startswith("cifar_cnn"):
@@ -40,3 +45,6 @@ def get_config(arch_id: str):
         return CONFIGS[arch_id]
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+from repro_torch.configs.input_specs import input_specs, shapes_for_arch  # noqa: E402,F401

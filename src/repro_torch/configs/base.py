@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/configs/base.py``, with the same fields and
 defaults.  ``ModelConfig.compute_dtype`` is a torch dtype.  The input
-shapes of the dry runs (``InputShape``) come with the mesh and roofline
-tools.
+shapes of the dry runs (``InputShape``, ``INPUT_SHAPES``) are the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -98,6 +98,11 @@ class ModelConfig:
         return self.d_model // self.num_heads
 
     @property
+    def supports_long_context(self) -> bool:
+        """sub-quadratic decode path exists (SSM state or sliding window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -120,6 +125,24 @@ class CNNConfig:
     pool_stride: int = 2
     dtype: str = "float32"
     family: str = "cnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """The paper's primary contribution: heterogeneity-aware kernel-sharded
 model parallelism for convolutional layers (Marques, Falcao, Alexandre,
-2017), ported to PyTorch.
+2017), ported to PyTorch, with its mesh generalisation
+(``make_sharded_conv``).
 
 Attribute access is lazy (PEP 562): ``from repro_torch.core import
 HeteroCluster`` works, but merely importing ``repro_torch.core`` pulls
@@ -35,6 +36,8 @@ _EXPORTS = {
     "probe_device": "repro_torch.core.partitioner",
     "speedup": "repro_torch.core.partitioner",
     "workload_shares": "repro_torch.core.partitioner",
+    # mesh sharding
+    "make_sharded_conv": "repro_torch.core.conv_shard",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -3,8 +3,8 @@
 Counterpart of ``repro/data/pipeline.py::synthetic_cifar_batches`` and
 ``synthetic_token_batches``: the same generator calls in the same
 order, so a seed yields the same arrays in both packages.
-``make_global_batch`` (host batches sharded over a mesh) comes with the
-mesh.
+``make_global_batch`` puts a host batch on a mesh, sharded on its batch
+axes.
 """
 from __future__ import annotations
 
@@ -60,3 +60,23 @@ def synthetic_token_batches(
             "tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32),
         }
+
+
+def make_global_batch(host_batch: Dict[str, np.ndarray], mesh, batch_axes=("pod", "data"),
+                      device=None) -> Dict[str, "torch.Tensor"]:
+    """Host numpy batch -> DTensors on ``mesh`` sharded on the batch axes
+    (those the mesh has).  Each rank holds the whole host batch, as the
+    launchers draw it from one seed, and keeps its own rows: the JAX
+    package's ``make_array_from_callback`` path.  ``device``: the mesh's
+    device type unless given."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.local import distribute_local
+
+    names = list(mesh.mesh_dim_names)
+    placements = [Shard(0) if n in batch_axes else Replicate() for n in names]
+    device = device or mesh.device_type
+    return {k: distribute_local(torch.from_numpy(np.ascontiguousarray(v)).to(device), mesh,
+                                placements)
+            for k, v in host_batch.items()}

@@ -9,6 +9,14 @@ Counterparts of the Pallas TPU kernels of ``repro/kernels/conv2d.py``:
 go to the plain versions (``ref.py``); CUDA tensors launch the kernel or
 raise — there is no fallback.  Each wrapper's ``.launches`` counts its
 kernel's launches, so a run can show that its path went through it.
+
+Each kernel is also a PyTorch operator, ``torch.ops.repro_torch.conv2d_fwd``,
+``conv2d_dx`` and ``conv2d_dw`` (``conv2d_op``, ``conv2d_dx_op``,
+``conv2d_dw_op``), which ``Conv2dFunction`` calls: each fake gives the
+output's shape and dtype, so DTensor shards (``local_map``) and
+``FakeTensorMode`` go through them where they cannot go through the
+ctypes launch, and their FLOP formula (``conv_flops``, 2*B*H*W*kh*kw*
+Cin*Cout) is what a ``torch.utils.flop_counter`` registry reads.
 """
 from __future__ import annotations
 
@@ -180,6 +188,25 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv_flops(x_shape, w_shape) -> float:
+    """Operations of one SAME stride-1 conv (or of its dX or dW):
+    2*B*H*W*kh*kw*Cin*Cout."""
+    b, h, wd, _ = x_shape
+    kh, kw, cin, cout = w_shape
+    return 2.0 * b * h * wd * kh * kw * cin * cout
+
+
+@torch.library.custom_op("repro_torch::conv2d_fwd", mutates_args=())
+def conv2d_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv2d`` (K1 on the card) as a PyTorch operator."""
+    return conv2d(x, w)
+
+
+@conv2d_op.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
 class DxPlan(NamedTuple):
     """How K2 cuts one dX GEMM (M = B*H*W pixels, N = Cin, K = kh*kw*Cout)."""
 
@@ -348,6 +375,47 @@ conv2d_dx.launches = 0
 conv2d_dw.launches = 0
 
 
+@torch.library.custom_op("repro_torch::conv2d_dx", mutates_args=())
+def conv2d_dx_op(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv2d_dx`` (K2 on the card) as a PyTorch operator."""
+    return conv2d_dx(g, w)
+
+
+@conv2d_dx_op.register_fake
+def _(g, w):
+    return g.new_empty((*g.shape[:3], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::conv2d_dw", mutates_args=())
+def conv2d_dw_op(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """``conv2d_dw`` (K3 on the card) as a PyTorch operator."""
+    return conv2d_dw(x, g, kh, kw)
+
+
+@conv2d_dw_op.register_fake
+def _(x, g, kh, kw):
+    return x.new_empty((kh, kw, x.shape[3], g.shape[3]), dtype=torch.float32)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.conv2d_fwd)
+    def _fwd(x_shape, w_shape, *args, out_shape=None, **kwargs):
+        return conv_flops(x_shape, w_shape)
+
+    @register_flop_formula(torch.ops.repro_torch.conv2d_dx)
+    def _dx(g_shape, w_shape, *args, out_shape=None, **kwargs):
+        return conv_flops(g_shape, w_shape)
+
+    @register_flop_formula(torch.ops.repro_torch.conv2d_dw)
+    def _dw(x_shape, g_shape, kh, kw, *args, out_shape=None, **kwargs):
+        return conv_flops(x_shape, (kh, kw, x_shape[3], g_shape[3]))
+
+
+_register_flops()
+
+
 class Conv2dFunction(torch.autograd.Function):
     """The differentiable SAME stride-1 conv: forward ``conv2d`` (K1),
     backward ``conv2d_dx`` (K2) and ``conv2d_dw`` (K3), dW cast to w's
@@ -357,13 +425,13 @@ class Conv2dFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return conv2d(x, w)
+        return conv2d_op(x, w)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx = conv2d_dx(g, w) if ctx.needs_input_grad[0] else None
+        dx = conv2d_dx_op(g, w) if ctx.needs_input_grad[0] else None
         dw = None
         if ctx.needs_input_grad[1]:
-            dw = conv2d_dw(x, g, w.shape[0], w.shape[1]).to(w.dtype)
+            dw = conv2d_dw_op(x, g, w.shape[0], w.shape[1]).to(w.dtype)
         return dx, dw

@@ -32,9 +32,20 @@ forward is the same kernel (or, on CPU tensors, the plain version) and
 whose backward is ``flash_attention_vjp``, written out in torch ops.
 Under ``no_grad`` / ``inference_mode`` (serving) no autograd node is
 built.
+
+Both paths call the kernel through a PyTorch operator,
+``torch.ops.repro_torch.flash_attention_fwd`` (``flash_attention_op``):
+its fake gives the output's shape, strides and dtype, so DTensor shards
+(``local_map``) and ``FakeTensorMode`` go through it where they cannot
+go through the ctypes launch, and its FLOP formula
+(``attention_flops``: 4*D per live pair) is registered with
+``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import flash_attn_fwd_library
@@ -73,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _flash_forward(q, k, v, causal=causal, window=window)
+    return flash_attention_op(q, k, v, causal, window)
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -130,6 +141,47 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def live_pairs(s: int, t: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the masks leave live for one (batch, head):
+    query i at position t - s + i sees keys max(0, pos - window + 1) ..
+    pos (causal) or .. t - 1."""
+    pos = np.arange(t - s, t, dtype=np.int64)
+    hi = np.minimum(t - 1, pos) if causal else np.full_like(pos, t - 1)
+    lo = np.maximum(0, pos - window + 1) if window is not None else np.zeros_like(pos)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attention_flops(q_shape, k_shape, causal: bool, window: Optional[int]) -> float:
+    """Operations of one flash attention: 4*D per live (query, key) pair
+    (q.k and p.v) of every (batch, head)."""
+    b, h, s, d = q_shape
+    return 4.0 * d * b * h * live_pairs(s, k_shape[2], causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: Optional[int]) -> torch.Tensor:
+    """``_flash_forward`` (K4 on the card) as a PyTorch operator."""
+    return _flash_forward(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    b, h, s, d = q.shape
+    return q.new_empty((b, s, h, d)).transpose(1, 2)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+    def _flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs):
+        return attention_flops(q_shape, k_shape, causal, window)
+
+
+_register_flops()
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,7 +255,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _flash_forward(q, k, v, causal=causal, window=window)
+        out = flash_attention_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.window = causal, window
         return out

@@ -31,11 +31,18 @@ goes through ``SsdFunction``, whose forward is the same kernel (or, on
 CPU tensors, the plain version) and whose backward is ``ssd_vjp``.
 Under ``no_grad`` / ``inference_mode`` (serving) no autograd node is
 built.
+
+Both paths call the kernel through a PyTorch operator,
+``torch.ops.repro_torch.ssd_fwd`` (``ssd_op``): its fake gives the
+outputs' shapes and dtypes, so DTensor shards (``local_map``) and
+``FakeTensorMode`` go through it where they cannot go through the
+ctypes launch, and its FLOP formula (``ssd_flops``, per 64-step tile)
+is registered with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -97,7 +104,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     ts = (x, dt, a, bmat, cmat)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return SsdFunction.apply(x, dt, a, bmat, cmat, chunk)
-    return _ssd_forward(x, dt, a, bmat, cmat, chunk=chunk)
+    return ssd_op(x, dt, a, bmat, cmat, chunk)
 
 
 def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -168,6 +175,49 @@ def _ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssd.launches = 0
 
 
+def ssd_flops(x_shape, bmat_shape, chunk: int, tile: int = ROW_TILE) -> float:
+    """Operations of one SSD scan cut into chunks and, inside each, into
+    tiles of ``tile`` steps: per tile of Lv steps, the causal triangle's
+    Lv(Lv+1)/2 pairs each cost 2(N + P) (scores and scores x dt*x), the
+    state and the inter term 2*Lv*P*N each."""
+    b, s, h, p = x_shape
+    n = bmat_shape[3]
+    chunk = min(chunk, s)
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        for t0 in range(c0, min(c0 + chunk, s), tile):
+            lv = min(tile, c0 + chunk - t0, s - t0)
+            flops += 2.0 * lv * (lv + 1) / 2 * (n + p) + 4.0 * lv * p * n
+    return flops * b * h
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+           cmat: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_ssd_forward`` (K5 on the card) as a PyTorch operator."""
+    y, state = _ssd_forward(x, dt, a, bmat, cmat, chunk=chunk)
+    return y, state
+
+
+@ssd_op.register_fake
+def _(x, dt, a, bmat, cmat, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p)),
+            x.new_empty((b, h, p, bmat.shape[3]), dtype=torch.float32))
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+    def _flops(x_shape, dt_shape, a_shape, bmat_shape, cmat_shape, chunk, *args,
+               out_shape=None, **kwargs):
+        return ssd_flops(x_shape, bmat_shape, chunk)
+
+
+_register_flops()
+
+
 def ssd_vjp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
             cmat: torch.Tensor, chunk: int, dy, dstate):
     """Gradients (dx, ddt, da, dbmat, dcmat) of ``ssd(x, dt, a, bmat,
@@ -207,7 +257,7 @@ class SsdFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, bmat, cmat, chunk):
-        y, state = _ssd_forward(x, dt, a, bmat, cmat, chunk=chunk)
+        y, state = ssd_op(x, dt, a, bmat, cmat, chunk)
         ctx.save_for_backward(x, dt, a, bmat, cmat)
         ctx.chunk = chunk
         # an unused output's cotangent arrives as None, not as zeros

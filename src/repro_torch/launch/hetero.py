@@ -471,6 +471,7 @@ def _clean_exit(code: int) -> None:
 
 
 def main():
+    """The command line (see the module docstring)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--slowdowns", default=None,
                     help="comma list; device 0 is the master (default "

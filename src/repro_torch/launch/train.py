@@ -16,8 +16,17 @@ default: K4 and K5 run every forward, ``flash_attention_vjp`` and
 ``ssd_vjp`` their backward) or ``cpu`` (the kernels' plain versions);
 ``cuda`` without a card is an error, never a CPU fallback.  With
 ``--ckpt-dir`` the final params are saved in the JAX package's layout
-and format.  The JAX launcher's ``--tp-mode``, production mesh and
-host-sharded batches (``make_global_batch``) come with the mesh.
+and format.
+
+The command line always trains under a mesh, as the JAX launcher does:
+the (1, 1) mesh of ``--device`` (``launch/mesh.py::make_host_mesh``),
+the state laid out by ``train_state_axes`` and the rules of
+``--tp-mode`` (megatron or gather), each batch put on the mesh by
+``make_global_batch``.  ``train()`` takes that mesh as an argument and
+without one trains on the plain tensors of one device.  The production
+meshes of 256 and 512 devices are reached only by the dry run
+(``launch/dryrun.py``); a real multi-GPU process group is not part of
+this launcher.
 """
 from __future__ import annotations
 
@@ -31,9 +40,12 @@ import torch
 from repro_torch.checkpoint.io import save_checkpoint
 from repro_torch.configs import RunConfig, get_config, reduced_for_smoke
 from repro_torch.convert import encdec_params_to_numpy, lm_params_to_numpy
-from repro_torch.data.pipeline import synthetic_token_batches
+from repro_torch.data.pipeline import make_global_batch, synthetic_token_batches
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.models.registry import build_model
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.sharding.partitioning import is_dtensor
+from repro_torch.train.step import init_train_state, make_train_step, shard_train_state
+from repro_torch.tree import tree_map
 
 
 def add_modalities(batch, cfg, rng):
@@ -57,7 +69,8 @@ def add_modalities(batch, cfg, rng):
 def train(arch: str, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
           optimizer: str = "adam", grad_accum: int = 1, full: bool = False,
           seed: int = 0, device="cuda", ckpt_dir: Optional[str] = None,
-          log_every: int = 10, log: Callable[[str], None] = print):
+          log_every: int = 10, log: Callable[[str], None] = print,
+          tp_mode: str = "megatron", mesh=None):
     """Train ``arch`` for ``steps`` steps of ``batch`` sequences of
     ``seq`` tokens on ``device``: params from a generator seeded with
     ``seed`` on the device, batches from ``synthetic_token_batches`` and
@@ -66,7 +79,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
     the steps; remat ``full`` with ``full``).  Returns (the final ``TrainState``, one record per step:
     ``loss``, ``aux_loss``, ``grad_norm``, ``lr`` as floats and
     ``elapsed_s``, host seconds from the first step's start to this
-    step's metrics on the host)."""
+    step's metrics on the host).  With a ``mesh`` the state and batches
+    are laid out on it by ``tp_mode``'s rules."""
     cfg = get_config(arch)
     if not full:
         cfg = reduced_for_smoke(cfg)
@@ -79,18 +93,24 @@ def train(arch: str, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
         total_steps=steps,
         warmup_steps=max(1, steps // 10),
         remat="full" if full else "none",
+        tp_mode=tp_mode,
     )
     device = torch.device(device)
     state = init_train_state(torch.Generator(device=device).manual_seed(seed), api, run,
                              device)
-    step_fn = make_train_step(api, run)
+    if mesh is not None:
+        state = shard_train_state(state, api, run, mesh)
+    step_fn = make_train_step(api, run, mesh=mesh)
     it = synthetic_token_batches(batch, seq, cfg.vocab_size, seed=seed)
     rng = np.random.default_rng(seed)
     records: List[Dict[str, float]] = []
     t0 = time.perf_counter()
     for i in range(steps):
         host = add_modalities(next(it), cfg, rng)
-        inputs = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        if mesh is None:
+            inputs = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        else:
+            inputs = make_global_batch(host, mesh, device=device)
         state, metrics = step_fn(state, inputs)
         rec = {k: float(v) for k, v in metrics.items()}
         rec["elapsed_s"] = time.perf_counter() - t0
@@ -100,14 +120,15 @@ def train(arch: str, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
                 f"lr={rec['lr']:.2e} ({rec['elapsed_s']:.1f}s)")
     if ckpt_dir:
         to_numpy = encdec_params_to_numpy if cfg.num_encoder_layers else lm_params_to_numpy
-        path = save_checkpoint(ckpt_dir, steps, to_numpy(state.params, cfg))
+        params = tree_map(lambda p: p.full_tensor() if is_dtensor(p) else p, state.params)
+        path = save_checkpoint(ckpt_dir, steps, to_numpy(params, cfg))
         log(f"saved params to {path}")
     return state, records
 
 
 def main(argv=None):
     """The command line: parse the flags, refuse ``--device cuda``
-    without a card, train."""
+    without a card, train under the host mesh of ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
@@ -121,6 +142,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp-mode", default="megatron", choices=["megatron", "gather"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
@@ -130,10 +152,12 @@ def main(argv=None):
             "torch.cuda.is_available() is False; pass --device cpu to run "
             "the plain PyTorch versions of the kernels on the CPU"
         )
-    train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-          optimizer=args.optimizer, grad_accum=args.grad_accum, full=args.full,
-          seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
-          log_every=args.log_every, log=lambda line: print(line, flush=True))
+    with host_mesh(args.device) as mesh:
+        train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+              optimizer=args.optimizer, grad_accum=args.grad_accum, full=args.full,
+              seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
+              log_every=args.log_every, log=lambda line: print(line, flush=True),
+              tp_mode=args.tp_mode, mesh=mesh)
 
 
 if __name__ == "__main__":

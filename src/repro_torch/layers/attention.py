@@ -13,6 +13,15 @@ positions are out of order, and a caller may supply positions of its
 own (``models/transformer.py::lm_forward(positions=...)``), so both keep
 the JAX package's ``naive_attention`` over explicit positions, in plain
 torch.
+
+Under a mesh (``rules`` given, DTensor operands) the layouts are pinned
+as in the JAX package: q, k and v sharded right after their column
+matmuls (``act_heads_col``), then the mode's layout (``act_heads``), the
+output back on the residual's (``act_seq``, ``act_embed``).  The kernel
+runs on each rank's heads (``sharding/local.py::local_attention``), and
+decode writes and reads the cache in the ranks' own slot shards
+(``write_slots``, ``local_decode_attention``).  Without rules or a mesh
+nothing changes.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.layers.embedding import apply_rope
-from repro_torch.layers.linear import apply_dense, init_dense
+from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
+from repro_torch.sharding.local import local_attention, local_decode_attention, write_slots
+from repro_torch.sharding.partitioning import constrain
 
 NEG_INF = -1e30
 
@@ -36,6 +47,23 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype, device="
         "wv": init_dense(generator, (d,), (kv, hd), dtype, device=device),
         "wo": init_dense(generator, (h, hd), (d,), dtype, scale=1.0, device=device),
     }
+
+
+def attention_axes(cfg: ModelConfig):
+    return {
+        "wq": dense_axes(("fsdp_embed",), ("heads", "head_dim")),
+        "wk": dense_axes(("fsdp_embed",), ("kv_heads", "head_dim")),
+        "wv": dense_axes(("fsdp_embed",), ("kv_heads", "head_dim")),
+        "wo": dense_axes(("heads_in", "head_dim"), ("fsdp_embed",)),
+    }
+
+
+def pin_heads(t: torch.Tensor, rules) -> torch.Tensor:
+    """The two-step layout pin of a (B, S, heads, hd) projection: sharded
+    right after the column matmul, then the mode's layout (gather mode
+    all-gathers here, megatron keeps it sharded)."""
+    t = constrain(t, rules, "batch", None, "act_heads_col", None)
+    return constrain(t, rules, "batch", None, "act_heads", None)
 
 
 def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
@@ -70,14 +98,14 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def project_qkv(params, x: torch.Tensor, *, cfg: ModelConfig,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None, rules=None):
     """q (B,S,H,hd), k and v (B,S,KV,hd) of a full sequence, RoPE applied
     to q and k at ``positions`` (B,S) (0..S-1 if None), in the compute
     dtype."""
     dtype = cfg.compute_dtype
-    q = apply_dense(params["wq"], x, dtype=dtype)
-    k = apply_dense(params["wk"], x, dtype=dtype)
-    v = apply_dense(params["wv"], x, dtype=dtype)
+    q = pin_heads(apply_dense(params["wq"], x, dtype=dtype), rules)
+    k = pin_heads(apply_dense(params["wk"], x, dtype=dtype), rules)
+    v = pin_heads(apply_dense(params["wv"], x, dtype=dtype), rules)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None]
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -85,13 +113,16 @@ def project_qkv(params, x: torch.Tensor, *, cfg: ModelConfig,
 
 
 def attend(q, k, v, *, causal: bool, window: Optional[int],
-           attention_fn=flash_attention) -> torch.Tensor:
+           attention_fn=flash_attention, rules=None) -> torch.Tensor:
     """Attention of a full sequence: q (B,S,H,hd), k and v (B,T,KV,hd) ->
     (B,S,H,hd), queries at positions 0..S-1 and keys at 0..T-1 (the
     flash contract's right alignment, for S == T or without masks).
     ``attention_fn`` takes the (B, heads, len, hd) views the
     flash-attention contract wants; K4 reads them through their
-    strides, so the transposes copy nothing."""
+    strides, so the transposes copy nothing.  With ``rules``, DTensor
+    operands go to ``attention_fn`` as each rank's shards."""
+    if rules is not None:
+        attention_fn = local_attention(attention_fn, rules)
     out = attention_fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=causal, window=window)
     return out.transpose(1, 2)
@@ -107,34 +138,45 @@ def compute_kv(params, kv_x: torch.Tensor, dtype):
 
 def apply_attention(params, x: torch.Tensor, *, cfg: ModelConfig, causal: bool = True,
                     kv_x: Optional[torch.Tensor] = None,
-                    attention_fn=flash_attention) -> torch.Tensor:
+                    attention_fn=flash_attention, rules=None) -> torch.Tensor:
     """Full-sequence (train / prefill / encoder) attention: self-attention
     at positions 0..S-1 under ``causal`` and ``cfg.sliding_window``; with
     ``kv_x`` (B,T,d), cross-attention: no causal mask, no window, no RoPE
     on either side."""
     dtype = cfg.compute_dtype
     if kv_x is None:
-        q, k, v = project_qkv(params, x, cfg=cfg)
+        q, k, v = project_qkv(params, x, cfg=cfg, rules=rules)
         out = attend(q, k, v, causal=causal, window=cfg.sliding_window,
-                     attention_fn=attention_fn)
+                     attention_fn=attention_fn, rules=rules)
     else:
-        q = apply_dense(params["wq"], x, dtype=dtype)
-        k, v = compute_kv(params, kv_x, dtype)
-        out = attend(q, k, v, causal=False, window=None, attention_fn=attention_fn)
-    return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)
+        q = pin_heads(apply_dense(params["wq"], x, dtype=dtype), rules)
+        k, v = (pin_heads(t, rules) for t in compute_kv(params, kv_x, dtype))
+        out = attend(q, k, v, causal=False, window=None, attention_fn=attention_fn,
+                     rules=rules)
+    return attn_out(params, out, cfg=cfg, rules=rules)
+
+
+def attn_out(params, out: torch.Tensor, *, cfg: ModelConfig, rules=None) -> torch.Tensor:
+    """The output projection ``wo`` of attention's (B,S,H,hd) output, back
+    on the residual's layout."""
+    out = constrain(out, rules, "batch", None, "act_heads", None)
+    y = apply_dense(params["wo"], out, n_in_dims=2, dtype=cfg.compute_dtype)
+    return constrain(y, rules, "batch", "act_seq", "act_embed")
 
 
 def decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     kv_pos: torch.Tensor, index: int, position: int) -> torch.Tensor:
+                     kv_pos: torch.Tensor, index: int, position: int,
+                     layer: Optional[int] = None) -> torch.Tensor:
     """One-token decode against a KV cache, written in place.
 
     x: (B, 1, d).  cache_k/v: (B, L, KV, hd), L the full length or the
-    sliding window (a ring).  kv_pos: (B, L), the absolute position in
-    each slot (-1 = empty), already holding ``position`` at ``index``.
-    The new token's k and v are written into slot ``index`` of cache_k
-    and cache_v (the JAX package returns updated copies instead).
-    Returns the layer's output (B, 1, d)."""
+    sliding window (a ring); with ``layer``, the stacked (layers, B, L,
+    KV, hd) cache and this layer's index.  kv_pos: (B, L), the absolute
+    position in each slot (-1 = empty), already holding ``position`` at
+    ``index``.  The new token's k and v are written into slot ``index``
+    (the JAX package returns updated copies instead).  Returns the
+    layer's output (B, 1, d)."""
     dtype = cfg.compute_dtype
     b = x.shape[0]
     q = apply_dense(params["wq"], x, dtype=dtype)  # (B,1,H,hd)
@@ -143,10 +185,12 @@ def decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     pos_arr = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
-    cache_k[:, index] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, index] = v[:, 0].to(cache_v.dtype)
-    out = naive_attention(q, cache_k.to(dtype), cache_v.to(dtype), pos_arr, kv_pos,
-                          causal=True, window=cfg.sliding_window)
+    write_slots(cache_k, index, k[:, 0].to(cache_k.dtype), dim=1, layer=layer)
+    write_slots(cache_v, index, v[:, 0].to(cache_v.dtype), dim=1, layer=layer)
+    if layer is not None:
+        cache_k, cache_v = cache_k[layer], cache_v[layer]
+    out = local_decode_attention(q, cache_k.to(dtype), cache_v.to(dtype), pos_arr, kv_pos,
+                                 causal=True, window=cfg.sliding_window)
     return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)
 
 
@@ -159,6 +203,6 @@ def cross_decode_attention(params, x: torch.Tensor, *, cfg: ModelConfig,
     dtype = cfg.compute_dtype
     q = apply_dense(params["wq"], x, dtype=dtype)
     pos = torch.zeros((x.shape[0], 1), dtype=torch.int32, device=x.device)
-    out = naive_attention(q, k.to(dtype), v.to(dtype), pos, kv_positions,
-                          causal=False, window=None)
+    out = local_decode_attention(q, k.to(dtype), v.to(dtype), pos, kv_positions,
+                                 causal=False, window=None)
     return apply_dense(params["wo"], out, n_in_dims=2, dtype=dtype)

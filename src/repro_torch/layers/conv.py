@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import conv2d_ref
+from repro_torch.sharding.local import local_max_pool
+from repro_torch.sharding.partitioning import is_dtensor
 
 
 def init_conv(generator: torch.Generator, kh: int, kw: int, c_in: int,
@@ -27,6 +29,10 @@ def init_conv(generator: torch.Generator, kh: int, kw: int, c_in: int,
             "bias": torch.zeros((c_out,), dtype=dtype, device=device)}
 
 
+def conv_axes():
+    return {"kernel": (None, None, "conv_in", "conv_out"), "bias": ("conv_out",)}
+
+
 def apply_conv(params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, H, W, Cin) -> (B, H, W, Cout), SAME padding, stride 1."""
     y = conv2d_ref(x, params["kernel"].to(x.dtype))
@@ -34,6 +40,9 @@ def apply_conv(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
-    """VALID max-pool over the H and W axes of NHWC x."""
+    """VALID max-pool over the H and W axes of NHWC x (a DTensor on each
+    rank's batch and channel shards)."""
+    if is_dtensor(x):
+        return local_max_pool(x, window, stride)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1)

@@ -7,6 +7,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.local import local_embedding
+from repro_torch.sharding.partitioning import is_dtensor, matmul
+
 
 def init_embedding(generator: torch.Generator, vocab_size: int, d_model: int,
                    dtype=torch.float32, device="cpu"):
@@ -15,13 +18,20 @@ def init_embedding(generator: torch.Generator, vocab_size: int, d_model: int,
     return {"table": table.to(device, dtype)}
 
 
+def embedding_axes():
+    return {"table": ("vocab", "fsdp_embed")}
+
+
 def embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return F.embedding(tokens, params["table"]).to(dtype)
+    table = params["table"]
+    if is_dtensor(table):  # a vocab-sharded lookup (sharding/local.py)
+        return local_embedding(table, tokens).to(dtype)
+    return F.embedding(tokens, table).to(dtype)
 
 
 def logits_from_embedding(params, x: torch.Tensor, dtype) -> torch.Tensor:
     """Tied read-out: x @ table.T"""
-    return x.to(dtype) @ params["table"].to(dtype).T
+    return matmul(x.to(dtype), params["table"].to(dtype).T)
 
 
 # ---------------------------------------------------------------------------

@@ -3,13 +3,21 @@
 Counterpart of ``repro/layers/linear.py`` (``init_dense``,
 ``apply_dense``): a kernel of shape ``in_dims + out_dims`` contracts the
 last ``len(in_dims)`` axes of x.  The CNN's fc layer is the one-axis
-case.  The logical-axis metadata (``dense_axes``) comes with sharding.
+case.  ``dense_axes`` gives a kernel's logical axes (sharding/axes.py).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.sharding.partitioning import (
+    flatten_last,
+    is_dtensor,
+    matmul,
+    pin_grad,
+    unflatten_last,
+)
 
 
 def _as_tuple(x):
@@ -30,6 +38,15 @@ def init_dense(generator: torch.Generator, in_dims, out_dims,
     return params
 
 
+def dense_axes(in_axes, out_axes, use_bias=False):
+    """Logical axes of a dense layer's params: the kernel's in_axes +
+    out_axes, the bias's out_axes."""
+    ax = {"kernel": tuple(in_axes) + tuple(out_axes)}
+    if use_bias:
+        ax["bias"] = tuple(out_axes)
+    return ax
+
+
 def apply_dense(params, x: torch.Tensor, *, n_in_dims: int = 1,
                 dtype=None) -> torch.Tensor:
     """Contract the last ``n_in_dims`` dims of x with the kernel's leading
@@ -38,9 +55,13 @@ def apply_dense(params, x: torch.Tensor, *, n_in_dims: int = 1,
     kernel = params["kernel"].to(dtype)
     k_in = math.prod(kernel.shape[:n_in_dims])
     out_dims = kernel.shape[n_in_dims:]
-    lead = x.shape[: x.dim() - n_in_dims]
-    y = x.to(dtype).reshape(*lead, k_in) @ kernel.reshape(k_in, -1)
-    y = y.reshape(*lead, *out_dims)
+    if is_dtensor(x):  # reshapes that keep a DTensor's splits legal
+        y = matmul(flatten_last(x.to(dtype), n_in_dims), pin_grad(kernel.reshape(k_in, -1)))
+        y = unflatten_last(y, out_dims)
+    else:
+        lead = x.shape[: x.dim() - n_in_dims]
+        y = x.to(dtype).reshape(*lead, k_in) @ kernel.reshape(k_in, -1)
+        y = y.reshape(*lead, *out_dims)
     if "bias" in params:
         y = y + params["bias"].to(dtype)
     return y

@@ -9,9 +9,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.local import local_lrn
+from repro_torch.sharding.partitioning import is_dtensor
+
 
 def init_rmsnorm(d: int, dtype=torch.float32, device="cpu"):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_axes():
+    return {"scale": ("embed_norm",)}
 
 
 def apply_rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -24,6 +31,10 @@ def apply_rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def init_layernorm(d: int, dtype=torch.float32, device="cpu"):
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_axes():
+    return {"scale": ("embed_norm",), "bias": ("embed_norm",)}
 
 
 def apply_layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -43,6 +54,10 @@ def init_norm(kind: str, d: int, dtype=torch.float32, device="cpu"):
     raise ValueError(f"unknown norm {kind!r}")
 
 
+def norm_axes(kind: str):
+    return rmsnorm_axes() if kind == "rmsnorm" else layernorm_axes()
+
+
 def apply_norm(kind: str, params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if kind == "rmsnorm":
         return apply_rmsnorm(params, x, eps)
@@ -60,6 +75,8 @@ def local_response_norm(
     The JAX package's arithmetic, not ``F.local_response_norm``, which
     scales alpha by 1/size and wants NCHW.  Computed in float32 (float64
     stays float64), returned in x's dtype."""
+    if is_dtensor(x):  # channel shards (sharding/local.py)
+        return local_lrn(x, size=size, alpha=alpha, beta=beta, k=k)
     acc_t = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(acc_t)
     c = x.shape[-1]

@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CNNConfig
-from repro_torch.layers.conv import apply_conv, init_conv, max_pool
-from repro_torch.layers.linear import apply_dense, init_dense
+from repro_torch.layers.conv import apply_conv, conv_axes, init_conv, max_pool
+from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
 from repro_torch.layers.norm import local_response_norm
+from repro_torch.sharding.partitioning import flatten_last
 
 PAPER_SIZES = {
     "cifar_cnn_50_500": (50, 500),
@@ -48,6 +49,16 @@ def init_cnn(generator: torch.Generator, cfg: CNNConfig, device="cpu"):
                            dtype, device),
         "fc": init_dense(generator, feat * feat * cfg.c2_kernels,
                          cfg.num_classes, dtype, use_bias=True, device=device),
+    }
+
+
+def cnn_axes():
+    """Logical axes of ``init_cnn``'s params: each conv's kernel axis is
+    the paper's (``conv_out``), the fc layer replicated."""
+    return {
+        "conv1": conv_axes(),
+        "conv2": conv_axes(),
+        "fc": dense_axes((None,), (None,), use_bias=True),
     }
 
 
@@ -83,7 +94,7 @@ def cnn_forward(params, images: torch.Tensor, *, cfg: CNNConfig,
     x = torch.relu(x)
     x = local_response_norm(x)
     x = max_pool(x, cfg.pool_stride, cfg.pool_stride)
-    x = x.reshape(x.shape[0], -1)
+    x = flatten_last(x, 3)
     return apply_dense(params["fc"], x)
 
 

@@ -18,6 +18,12 @@ its cross-attention (non-causal, S = the prompt, T = T_enc; S may exceed
 T).  The prefill computes each decoder layer's cross k and v once and
 caches them, with the self-attention's k and v in a full cache (no
 ring) of ``cache_len`` slots.  Decode launches no kernel.
+
+Under a mesh each function takes the JAX package's ``rules`` (and the
+``mesh``, for the cache's layout): the params and cache are DTensors
+(``encdec_axes``, ``encdec_cache_axes``), the residual stream and the
+logits are pinned at the JAX package's points, and K4 runs on each
+rank's shards.  Without a mesh they run as on one device.
 """
 from __future__ import annotations
 
@@ -28,11 +34,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.layers import attention as attn_lib
-from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_from_embedding
+from repro_torch.layers.embedding import (
+    embed_tokens,
+    embedding_axes,
+    init_embedding,
+    logits_from_embedding,
+)
 from repro_torch.layers.linear import apply_dense
-from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.norm import apply_norm, init_norm
+from repro_torch.layers.mlp import apply_mlp, init_mlp, mlp_axes
+from repro_torch.layers.norm import apply_norm, init_norm, norm_axes
 from repro_torch.models.remat import remat_block
+from repro_torch.models.transformer import shard_cache
+from repro_torch.sharding.local import write_layer, write_slots
+from repro_torch.sharding.partitioning import constrain
 
 
 def init_enc_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
@@ -72,6 +86,35 @@ def init_encdec(generator: torch.Generator, cfg: ModelConfig, device):
     }
 
 
+def _enc_block_axes(cfg: ModelConfig):
+    return {
+        "ln1": norm_axes(cfg.norm),
+        "attn": attn_lib.attention_axes(cfg),
+        "ln2": norm_axes(cfg.norm),
+        "mlp": mlp_axes(gated=cfg.gated_mlp),
+    }
+
+
+def _dec_block_axes(cfg: ModelConfig):
+    ax = _enc_block_axes(cfg)
+    ax["ln_x"] = norm_axes(cfg.norm)
+    ax["xattn"] = attn_lib.attention_axes(cfg)
+    return ax
+
+
+def encdec_axes(cfg: ModelConfig):
+    """Logical axes of ``init_encdec``'s params; each block list holds one
+    layer's axes (the JAX package's without its stacked ``layers``
+    axis), which apply to every layer."""
+    return {
+        "embed": embedding_axes(),
+        "enc_blocks": _enc_block_axes(cfg),
+        "enc_ln_f": norm_axes(cfg.norm),
+        "dec_blocks": _dec_block_axes(cfg),
+        "dec_ln_f": norm_axes(cfg.norm),
+    }
+
+
 def _remat(fn, remat: str):
     """The JAX package's encoder-decoder checkpoints each layer whole
     under ``full`` and under ``dots`` alike."""
@@ -79,7 +122,7 @@ def _remat(fn, remat: str):
 
 
 def encode(params, frames: torch.Tensor, *, cfg: ModelConfig,
-           attention_fn=flash_attention, remat: str = "none") -> torch.Tensor:
+           attention_fn=flash_attention, remat: str = "none", rules=None) -> torch.Tensor:
     """frames: (B, T_enc, d_model) stub frontend embeddings -> the
     encoder's output (B, T_enc, d_model): bidirectional self-attention
     at positions 0..T_enc-1 (RoPE, ``cfg.sliding_window``), then the MLP,
@@ -87,65 +130,73 @@ def encode(params, frames: torch.Tensor, *, cfg: ModelConfig,
     def block(lp, xc):
         h = apply_norm(cfg.norm, lp["ln1"], xc, cfg.norm_eps)
         xc = xc + attn_lib.apply_attention(lp["attn"], h, cfg=cfg, causal=False,
-                                           attention_fn=attention_fn)
+                                           attention_fn=attention_fn, rules=rules)
         h = apply_norm(cfg.norm, lp["ln2"], xc, cfg.norm_eps)
-        return xc + apply_mlp(lp["mlp"], h, cfg=cfg)
+        xc = xc + apply_mlp(lp["mlp"], h, cfg=cfg, rules=rules)
+        return constrain(xc, rules, "batch", "act_seq", "act_embed")
 
     block = _remat(block, remat)
-    x = frames.to(cfg.compute_dtype)
+    x = constrain(frames.to(cfg.compute_dtype), rules, "batch", "act_seq", "act_embed")
     for lp in params["enc_blocks"]:
         x = block(lp, x)
     return apply_norm(cfg.norm, params["enc_ln_f"], x, cfg.norm_eps)
 
 
 def _dec_block(lp, x: torch.Tensor, enc_out: torch.Tensor, *, cfg: ModelConfig,
-               attention_fn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               attention_fn, rules=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder layer over a full token sequence at positions 0..S-1.
     Returns (x, the layer's self k, v and cross k, v for the cache)."""
     dtype = cfg.compute_dtype
     h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn_lib.project_qkv(lp["attn"], h, cfg=cfg)
+    q, k, v = attn_lib.project_qkv(lp["attn"], h, cfg=cfg, rules=rules)
     out = attn_lib.attend(q, k, v, causal=True, window=cfg.sliding_window,
-                          attention_fn=attention_fn)
-    x = x + apply_dense(lp["attn"]["wo"], out, n_in_dims=2, dtype=dtype)
+                          attention_fn=attention_fn, rules=rules)
+    x = x + attn_lib.attn_out(lp["attn"], out, cfg=cfg, rules=rules)
     h = apply_norm(cfg.norm, lp["ln_x"], x, cfg.norm_eps)
-    xk, xv = attn_lib.compute_kv(lp["xattn"], enc_out, dtype)
-    xq = apply_dense(lp["xattn"]["wq"], h, dtype=dtype)
-    out = attn_lib.attend(xq, xk, xv, causal=False, window=None, attention_fn=attention_fn)
-    x = x + apply_dense(lp["xattn"]["wo"], out, n_in_dims=2, dtype=dtype)
+    xk, xv = (attn_lib.pin_heads(t, rules)
+              for t in attn_lib.compute_kv(lp["xattn"], enc_out, dtype))
+    xq = attn_lib.pin_heads(apply_dense(lp["xattn"]["wq"], h, dtype=dtype), rules)
+    out = attn_lib.attend(xq, xk, xv, causal=False, window=None, attention_fn=attention_fn,
+                          rules=rules)
+    x = x + attn_lib.attn_out(lp["xattn"], out, cfg=cfg, rules=rules)
     h = apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
-    x = x + apply_mlp(lp["mlp"], h, cfg=cfg)
+    x = x + apply_mlp(lp["mlp"], h, cfg=cfg, rules=rules)
+    x = constrain(x, rules, "batch", "act_seq", "act_embed")
     return x, {"k": k, "v": v, "cross_k": xk, "cross_v": xv}
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _logits(params, x: torch.Tensor, cfg: ModelConfig, rules=None,
+            seq_axis: Optional[str] = "act_seq") -> torch.Tensor:
     x = apply_norm(cfg.norm, params["dec_ln_f"], x, cfg.norm_eps)
-    return logits_from_embedding(params["embed"], x, cfg.compute_dtype)
+    logits = logits_from_embedding(params["embed"], x, cfg.compute_dtype)
+    return constrain(logits, rules, "batch", seq_axis, "vocab")
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor, *,
                  cfg: ModelConfig, attention_fn=flash_attention,
-                 remat: str = "none") -> torch.Tensor:
+                 remat: str = "none", rules=None) -> torch.Tensor:
     """Teacher-forced decoder over the full token sequence -> logits
     (B, S, vocab).  ``remat``: ``none | full | dots``."""
     def block(lp, xc, enc):
-        return _dec_block(lp, xc, enc, cfg=cfg, attention_fn=attention_fn)[0]
+        return _dec_block(lp, xc, enc, cfg=cfg, attention_fn=attention_fn, rules=rules)[0]
 
     block = _remat(block, remat)
     x = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    x = constrain(x, rules, "batch", "act_seq", "act_embed")
     for lp in params["dec_blocks"]:
         x = block(lp, x, enc_out)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg, rules)
 
 
 def encdec_forward(params, batch, *, cfg: ModelConfig, attention_fn=flash_attention,
-                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+                   remat: str = "none", rules=None,
+                   mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: batch ``frames`` and ``tokens`` -> (logits,
     aux = 0)."""
     enc_out = encode(params, batch["frames"], cfg=cfg, attention_fn=attention_fn,
-                     remat=remat)
+                     remat=remat, rules=rules)
     logits = decode_train(params, batch["tokens"], enc_out, cfg=cfg,
-                          attention_fn=attention_fn, remat=remat)
+                          attention_fn=attention_fn, remat=remat, rules=rules)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -173,8 +224,22 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
     }
 
 
+def encdec_cache_axes():
+    """Logical axes of ``init_encdec_cache``'s entries ("t" is a Python int)."""
+    return {
+        "t": None,
+        "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "pos": ("batch", "cache_seq"),
+        "cross_k": ("layers", "batch", None, "kv_heads", None),
+        "cross_v": ("layers", "batch", None, "kv_heads", None),
+        "cross_pos": ("batch", None),
+    }
+
+
 def encdec_prefill(params, batch, *, cfg: ModelConfig, cache_len: Optional[int] = None,
-                   attention_fn=flash_attention) -> Tuple[torch.Tensor, Any]:
+                   attention_fn=flash_attention, rules=None,
+                   mesh=None) -> Tuple[torch.Tensor, Any]:
     """Encode the batch's ``frames``, compute each decoder layer's cross
     k and v once, and prefill the ``tokens``.  Returns (last-token logits
     (B, vocab), cache); the cache holds ``cache_len`` (>= S, default S)
@@ -185,27 +250,32 @@ def encdec_prefill(params, batch, *, cfg: ModelConfig, cache_len: Optional[int] 
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError(f"{cfg.arch_id}: cache_len {cache_len} < the prompt's {s} tokens")
-    enc_out = encode(params, frames, cfg=cfg, attention_fn=attention_fn)
+    enc_out = encode(params, frames, cfg=cfg, attention_fn=attention_fn, rules=rules)
     t_enc = enc_out.shape[1]
     if t_enc != cfg.audio.num_frames:
         raise ValueError(f"{cfg.arch_id}: {t_enc} frames, the config's cache holds "
                          f"{cfg.audio.num_frames}")
-    cache = init_encdec_cache(cfg, b, cache_len, dtype, enc_out.device)
+    cache = shard_cache(init_encdec_cache(cfg, b, cache_len, dtype, enc_out.device),
+                        encdec_cache_axes(), rules, mesh)
     x = embed_tokens(params["embed"], tokens, dtype)
+    x = constrain(x, rules, "batch", "act_seq", "act_embed")
+    first = torch.arange(s, device=x.device)
     for layer, lp in enumerate(params["dec_blocks"]):
-        x, state = _dec_block(lp, x, enc_out, cfg=cfg, attention_fn=attention_fn)
-        cache["k"][layer][:, :s] = state["k"]
-        cache["v"][layer][:, :s] = state["v"]
-        cache["cross_k"][layer] = state["cross_k"]
-        cache["cross_v"][layer] = state["cross_v"]
-    cache["pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=x.device)
-    cache["cross_pos"][:] = torch.arange(t_enc, dtype=torch.int32, device=x.device)
+        x, state = _dec_block(lp, x, enc_out, cfg=cfg, attention_fn=attention_fn,
+                              rules=rules)
+        write_slots(cache["k"], first, state["k"], dim=1, layer=layer)
+        write_slots(cache["v"], first, state["v"], dim=1, layer=layer)
+        write_layer(cache["cross_k"], layer, state["cross_k"])
+        write_layer(cache["cross_v"], layer, state["cross_v"])
+    write_slots(cache["pos"], first, first.to(torch.int32)[None].expand(b, -1), dim=1)
+    enc_pos = torch.arange(t_enc, dtype=torch.int32, device=x.device)
+    write_slots(cache["cross_pos"], enc_pos, enc_pos[None].expand(b, -1), dim=1)
     cache["t"] = s
-    return _logits(params, x[:, -1:], cfg)[:, 0], cache
+    return _logits(params, x[:, -1:], cfg, rules, seq_axis=None)[:, 0], cache
 
 
-def encdec_decode_step(params, cache, tokens: torch.Tensor, *,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+def encdec_decode_step(params, cache, tokens: torch.Tensor, *, cfg: ModelConfig,
+                       rules=None, mesh=None) -> Tuple[torch.Tensor, Any]:
     """One decode token against the self cache and the fixed cross k, v:
     tokens (B, 1) -> (logits (B, vocab), cache).  The cache is updated
     in place (slot ``t`` of every layer, "pos" and "t") and returned; the
@@ -214,18 +284,19 @@ def encdec_decode_step(params, cache, tokens: torch.Tensor, *,
     if position >= cache["k"].shape[2]:
         raise ValueError(f"{cfg.arch_id}: the cache's {cache['k'].shape[2]} slots are "
                          f"full (no ring in the encoder-decoder's cache)")
-    cache["pos"][:, position] = position
+    write_slots(cache["pos"], position, position, dim=1)
     x = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    x = constrain(x, rules, "batch", None, "act_embed")
     for layer, lp in enumerate(params["dec_blocks"]):
         h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
         x = x + attn_lib.decode_attention(
-            lp["attn"], h, cfg=cfg, cache_k=cache["k"][layer], cache_v=cache["v"][layer],
-            kv_pos=cache["pos"], index=position, position=position)
+            lp["attn"], h, cfg=cfg, cache_k=cache["k"], cache_v=cache["v"],
+            kv_pos=cache["pos"], index=position, position=position, layer=layer)
         h = apply_norm(cfg.norm, lp["ln_x"], x, cfg.norm_eps)
         x = x + attn_lib.cross_decode_attention(
             lp["xattn"], h, cfg=cfg, k=cache["cross_k"][layer], v=cache["cross_v"][layer],
             kv_positions=cache["cross_pos"])
         h = apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], h, cfg=cfg)
+        x = x + apply_mlp(lp["mlp"], h, cfg=cfg, rules=rules)
     cache["t"] = position + 1
-    return _logits(params, x, cfg)[:, 0], cache
+    return _logits(params, x, cfg, rules, seq_axis=None)[:, 0], cache

@@ -16,6 +16,15 @@ the JAX package's ``remat`` policies.  Decode launches neither kernel.  A MoE
 block (``layers/moe.py``) takes the MLP's place; the VLM projector maps
 the caller's patch embeddings onto the first positions of the sequence.
 The encoder-decoder family is ``models/encdec.py``.
+
+Under a mesh every function takes the JAX package's ``rules`` (the
+logical-axis table of ``sharding/axes.py``) and ``mesh``: params,
+batch and cache are DTensors (``lm_axes``, ``cache_axes``), the
+residual stream and the logits are pinned at the JAX package's points,
+K4 and K5 run on each rank's shards, the MoE runs its mesh path, and
+the cache is written in each rank's own shard.  Called inside
+``sharding.partitioning.mesh_context``.  Without a mesh they run as on
+one device.
 """
 from __future__ import annotations
 
@@ -29,11 +38,22 @@ from repro_torch.kernels.ops import flash_attention, ssd
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mamba2 as mamba_lib
 from repro_torch.layers import moe as moe_lib
-from repro_torch.layers.embedding import embed_tokens, init_embedding, logits_from_embedding
-from repro_torch.layers.linear import apply_dense, init_dense
-from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.norm import apply_norm, init_norm
+from repro_torch.layers.embedding import (
+    embed_tokens,
+    embedding_axes,
+    init_embedding,
+    logits_from_embedding,
+)
+from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
+from repro_torch.layers.mlp import apply_mlp, init_mlp, mlp_axes
+from repro_torch.layers.norm import apply_norm, init_norm, norm_axes
 from repro_torch.models.remat import remat_block
+from repro_torch.sharding.local import write_layer, write_slots
+from repro_torch.sharding.partitioning import (
+    constrain,
+    distribute_tree,
+    param_sharding_for_tree,
+)
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -72,6 +92,41 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
     return p
 
 
+def block_axes(cfg: ModelConfig):
+    """Logical axes of one block's params (the JAX package's per-layer
+    axes without the stacked ``layers`` axis: the port keeps a list)."""
+    ax: Dict[str, Any] = {"ln1": norm_axes(cfg.norm)}
+    if _has_attn(cfg):
+        ax["attn"] = attn_lib.attention_axes(cfg)
+    if _has_mamba(cfg):
+        ax["mamba"] = mamba_lib.mamba2_axes()
+    if _has_moe(cfg):
+        ax["ln2"] = norm_axes(cfg.norm)
+        ax["moe"] = moe_lib.moe_axes()
+    elif _has_mlp(cfg):
+        ax["ln2"] = norm_axes(cfg.norm)
+        ax["mlp"] = mlp_axes(gated=cfg.gated_mlp)
+    return ax
+
+
+def lm_axes(cfg: ModelConfig):
+    """Logical axes of ``init_lm``'s params; ``blocks`` holds one block's
+    axes, which apply to every layer of the list."""
+    ax = {
+        "embed": embedding_axes(),
+        "blocks": block_axes(cfg),
+        "ln_f": norm_axes(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = dense_axes(("fsdp_embed",), ("vocab",))
+    if cfg.vision is not None:
+        ax["projector"] = {
+            "fc1": dense_axes(("fsdp_embed",), ("mlp",), use_bias=True),
+            "fc2": dense_axes(("mlp_in",), ("fsdp_embed",), use_bias=True),
+        }
+    return ax
+
+
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
     """Random params drawn from ``generator`` (on any device; drawing on
     the card is fast at full width), placed on ``device`` in
@@ -103,8 +158,12 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device):
 # full sequence
 
 
-def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *,
-          cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _token_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if mesh is None or a in mesh.mesh_dim_names)
+
+
+def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *, cfg: ModelConfig, rules=None,
+          mesh=None, seq_axis="act_seq") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A block's tail: hymba's attention and mamba heads, run in parallel
     on the same input, are fused by averaging; then the residual and the
     MLP or the MoE.  Returns (x, the MoE's aux loss or None)."""
@@ -112,22 +171,23 @@ def _fuse(lp, x: torch.Tensor, attn_out, mamba_out, *,
         mix = mamba_out if attn_out is None else attn_out
     else:
         mix = 0.5 * (attn_out + mamba_out)
-    x = x + mix
+    x = constrain(x + mix, rules, "batch", seq_axis, "act_embed")
     aux = None
     if "ln2" in lp:
         h = apply_norm(cfg.norm, lp["ln2"], x, cfg.norm_eps)
         if "moe" in lp:
-            y, aux = moe_lib.apply_moe(lp["moe"], h, cfg=cfg)
+            y, aux = moe_lib.apply_moe(lp["moe"], h, cfg=cfg, mesh=mesh,
+                                       token_axes=_token_axes(mesh))
         else:
-            y = apply_mlp(lp["mlp"], h, cfg=cfg)
-        x = x + y
+            y = apply_mlp(lp["mlp"], h, cfg=cfg, rules=rules)
+        x = constrain(x + y, rules, "batch", seq_axis, "act_embed")
     return x, aux
 
 
 def apply_block(lp, x: torch.Tensor, *, cfg: ModelConfig,
                 positions: Optional[torch.Tensor] = None,
-                attention_fn=flash_attention,
-                ssd_fn=ssd) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+                attention_fn=flash_attention, ssd_fn=ssd, rules=None,
+                mesh=None) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
     """Full-sequence block.  Returns (x, state, aux): the layer's k and v
     (B, S, KV, hd) and its mamba ``conv`` and ``ssm`` states, whichever
     the family has, for the prefill's cache; the MoE's aux loss or None.
@@ -138,23 +198,25 @@ def apply_block(lp, x: torch.Tensor, *, cfg: ModelConfig,
     attn_out = mamba_out = None
     if _has_attn(cfg):
         q, state["k"], state["v"] = attn_lib.project_qkv(lp["attn"], h, cfg=cfg,
-                                                         positions=positions)
+                                                         positions=positions, rules=rules)
         if positions is None:
             out = attn_lib.attend(q, state["k"], state["v"], causal=True,
-                                  window=cfg.sliding_window, attention_fn=attention_fn)
+                                  window=cfg.sliding_window, attention_fn=attention_fn,
+                                  rules=rules)
         else:
             out = attn_lib.naive_attention(q, state["k"], state["v"], positions, positions,
                                            causal=True, window=cfg.sliding_window)
-        attn_out = apply_dense(lp["attn"]["wo"], out, n_in_dims=2, dtype=cfg.compute_dtype)
+        attn_out = attn_lib.attn_out(lp["attn"], out, cfg=cfg, rules=rules)
     if _has_mamba(cfg):
         mamba_out, mamba_state = mamba_lib.mamba2_with_state(lp["mamba"], h, cfg=cfg,
-                                                             ssd_fn=ssd_fn)
+                                                             ssd_fn=ssd_fn, rules=rules)
         state.update(mamba_state)
-    x, aux = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
+    x, aux = _fuse(lp, x, attn_out, mamba_out, cfg=cfg, rules=rules, mesh=mesh)
     return x, state, aux
 
 
-def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool) -> torch.Tensor:
+def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool, rules=None,
+          seq_axis: Optional[str] = "act_seq") -> torch.Tensor:
     dtype = cfg.compute_dtype
     x = apply_norm(cfg.norm, params["ln_f"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -163,7 +225,7 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig, *, softcap: bool) -> torch.
         logits = apply_dense(params["lm_head"], x, dtype=dtype)
     if softcap and cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return constrain(logits, rules, "batch", seq_axis, "vocab")
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -190,18 +252,21 @@ def lm_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                patches: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None,
                attention_fn=flash_attention, ssd_fn=ssd,
-               remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+               remat: str = "none", rules=None,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train / prefill forward over a full sequence, at positions 0..S-1
     or at the caller's ``positions`` (B, S).  Returns (logits (B, S,
     vocab), aux): aux, the MoE balance loss summed over the layers (0
     without MoE), float32.  ``remat`` (``none | full | dots``) is each
     block's rematerialisation under autograd (``models/remat.py``)."""
     x = _embed(params, tokens, cfg, patches)
+    x = constrain(x, rules, "batch", "act_seq", "act_embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(lp, xc):
         y, _, a = apply_block(lp, xc, cfg=cfg, positions=positions,
-                              attention_fn=attention_fn, ssd_fn=ssd_fn)
+                              attention_fn=attention_fn, ssd_fn=ssd_fn, rules=rules,
+                              mesh=mesh)
         return y, (torch.zeros((), dtype=torch.float32, device=y.device)
                    if a is None else a)
 
@@ -209,7 +274,7 @@ def lm_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     for lp in params["blocks"]:
         x, a = block(lp, x)
         aux = aux + a
-    return _head(params, x, cfg, softcap=True), aux
+    return _head(params, x, cfg, softcap=True, rules=rules), aux
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +309,33 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device="c
     return cache
 
 
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s entries ("t" is a Python int)."""
+    ax: Dict[str, Any] = {"t": None}
+    if _has_attn(cfg):
+        # slot dim sharded over `model` (cache_seq): kv_heads rarely
+        # divide the 16-way axis, and the slot dim always does
+        ax["k"] = ("layers", "batch", "cache_seq", "kv_heads", None)
+        ax["v"] = ("layers", "batch", "cache_seq", "kv_heads", None)
+        ax["pos"] = ("batch", "cache_seq")
+    if _has_mamba(cfg):
+        ax["conv"] = ("layers", "batch", None, "ssm_inner")
+        ax["ssm"] = ("layers", "batch", "ssm_heads", None, None)
+    return ax
+
+
+def shard_cache(cache, axes, rules, mesh):
+    """A cache of plain tensors (the same on every rank) as DTensors laid
+    out by ``axes`` on ``mesh`` (as it is without a mesh)."""
+    if mesh is None:
+        return cache
+    return distribute_tree(cache, mesh, param_sharding_for_tree(mesh, axes, rules, cache))
+
+
 def lm_prefill(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                patches: Optional[torch.Tensor] = None, cache_len: Optional[int] = None,
-               attention_fn=flash_attention, ssd_fn=ssd) -> Tuple[torch.Tensor, Any]:
+               attention_fn=flash_attention, ssd_fn=ssd, rules=None,
+               mesh=None) -> Tuple[torch.Tensor, Any]:
     """Prefill: full forward + build the decode cache.  Returns
     (last-token logits (B, vocab), cache).  ``cache_len`` >= s leaves
     headroom for subsequent decode steps (defaults to s).  As in the JAX
@@ -254,7 +343,9 @@ def lm_prefill(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     dtype = cfg.compute_dtype
     b, s = tokens.shape
     x = _embed(params, tokens, cfg, patches)
-    cache = init_cache(cfg, b, cache_len or s, dtype, x.device)
+    x = constrain(x, rules, "batch", "act_seq", "act_embed")
+    cache = shard_cache(init_cache(cfg, b, cache_len or s, dtype, x.device),
+                        cache_axes(cfg), rules, mesh)
     c = cache["k"].shape[2] if "k" in cache else 0
     n_fill = min(c, s)
     # the last n_fill tokens go to slot = pos % c (ring layout)
@@ -262,47 +353,51 @@ def lm_prefill(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     slots = fill_pos % c if c else fill_pos
 
     for layer, lp in enumerate(params["blocks"]):
-        x, state, _ = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn)
+        x, state, _ = apply_block(lp, x, cfg=cfg, attention_fn=attention_fn, ssd_fn=ssd_fn,
+                                  rules=rules, mesh=mesh)
         if "k" in state:  # the cache is filled in place
-            cache["k"][layer][:, slots] = state["k"][:, s - n_fill:]
-            cache["v"][layer][:, slots] = state["v"][:, s - n_fill:]
+            write_slots(cache["k"], slots, state["k"][:, s - n_fill:], dim=1, layer=layer)
+            write_slots(cache["v"], slots, state["v"][:, s - n_fill:], dim=1, layer=layer)
         if "ssm" in state:  # the JAX package's _mamba_prefill
-            cache["conv"][layer] = state["conv"]
-            cache["ssm"][layer] = state["ssm"]
+            write_layer(cache["conv"], layer, state["conv"])
+            write_layer(cache["ssm"], layer, state["ssm"])
 
     cache["t"] = s
     if "pos" in cache:
-        cache["pos"][:, slots] = fill_pos.to(torch.int32)
-    return _head(params, x[:, -1:], cfg, softcap=False)[:, 0], cache
+        pos = fill_pos.to(torch.int32)[None].expand(b, -1)
+        write_slots(cache["pos"], slots, pos, dim=1)
+    return _head(params, x[:, -1:], cfg, softcap=False, rules=rules,
+                 seq_axis=None)[:, 0], cache
 
 
-def lm_decode_step(params, cache, tokens: torch.Tensor, *,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+def lm_decode_step(params, cache, tokens: torch.Tensor, *, cfg: ModelConfig,
+                   rules=None, mesh=None) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens (B, 1) -> (logits (B, vocab), cache).  The
     cache is updated in place (the ring slot, the SSM and conv states,
     "pos" and "t") and returned; the JAX package returns a new cache."""
     position = cache["t"]
     x = embed_tokens(params["embed"], tokens, cfg.compute_dtype)
+    x = constrain(x, rules, "batch", None, "act_embed")
     index = 0
     if _has_attn(cfg):
         index = position % cache["k"].shape[2]
-        cache["pos"][:, index] = position
+        write_slots(cache["pos"], index, position, dim=1)
 
     for layer, lp in enumerate(params["blocks"]):
         h = apply_norm(cfg.norm, lp["ln1"], x, cfg.norm_eps)
         attn_out = mamba_out = None
         if _has_attn(cfg):
             attn_out = attn_lib.decode_attention(
-                lp["attn"], h, cfg=cfg, cache_k=cache["k"][layer],
-                cache_v=cache["v"][layer], kv_pos=cache["pos"], index=index,
-                position=position)
+                lp["attn"], h, cfg=cfg, cache_k=cache["k"], cache_v=cache["v"],
+                kv_pos=cache["pos"], index=index, position=position, layer=layer)
         if _has_mamba(cfg):
             mamba_out, state = mamba_lib.decode_mamba2(
                 lp["mamba"], h, {"conv": cache["conv"][layer], "ssm": cache["ssm"][layer]},
                 cfg=cfg)
-            cache["conv"][layer] = state["conv"]
-            cache["ssm"][layer] = state["ssm"]
-        x, _ = _fuse(lp, x, attn_out, mamba_out, cfg=cfg)
+            write_layer(cache["conv"], layer, state["conv"])
+            write_layer(cache["ssm"], layer, state["ssm"])
+        x, _ = _fuse(lp, x, attn_out, mamba_out, cfg=cfg, rules=rules, mesh=mesh,
+                     seq_axis=None)
 
     cache["t"] = position + 1
-    return _head(params, x, cfg, softcap=True)[:, 0], cache
+    return _head(params, x, cfg, softcap=True, rules=rules, seq_axis=None)[:, 0], cache

@@ -13,9 +13,10 @@ layer on a leading axis.  So its state is in the JAX package's layout
 (one stacked entry per JAX leaf), and its update stacks a layer list's
 gradients and params into the JAX leaf, steps it as the JAX package
 does, and hands each layer its slice: the factoring decision is made on
-the stacked shape and the clip reduces over all layers at once.  The
-sharding axes of the state (``optimizer_state_axes``) come with the
-mesh.
+the stacked shape and the clip reduces over all layers at once.
+``optimizer_state_axes`` gives the state's logical axes in the same
+layouts (the JAX package's per stacked leaf for Adafactor), with the
+params' ``fsdp_embed`` axis renamed ``opt_embed`` as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ class Optimizer:
 
 
 def _zeros_like(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+    """float32 zeros of each param's shape (and, for a DTensor, layout)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
 
 
 def _count_scale(count: int, beta: float) -> torch.Tensor:
@@ -200,3 +202,47 @@ def make_optimizer(name: str, *, weight_decay: float = 0.0) -> Optimizer:
     if name == "adafactor":
         return adafactor(weight_decay=weight_decay)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def optimizer_state_axes(name: str, param_axes, param_shapes) -> Any:
+    """Logical axes for the optimizer state, mirroring the param axes so
+    FSDP/TP sharding carries over to the moments — except the params'
+    ``fsdp_embed`` axis becomes ``opt_embed`` so ZeRO-1 can shard the
+    moments while replicating the params.  ``param_axes`` is the model's
+    ``param_axes()`` (one layer's axes standing for a layer list),
+    ``param_shapes`` the param tree (tensors or fake tensors): it decides
+    which Adafactor leaves are factored, on the stacked JAX leaf's
+    shape, whose axes then carry the ``layers`` axis first."""
+    def _opt(axes):
+        if axes is None:
+            return None
+        return tuple("opt_embed" if a == "fsdp_embed" else a for a in axes)
+
+    def _rename(t):
+        if isinstance(t, dict):
+            return {k: _rename(v) for k, v in t.items()}
+        return _opt(t)
+
+    opt_axes = _rename(param_axes)
+    if name == "sgd":
+        return {"mu": opt_axes}
+    if name == "adam":
+        return {"mu": opt_axes, "nu": opt_axes, "count": None}
+    if name == "adafactor":
+        def _factored(shape) -> bool:
+            return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
+
+        v: dict = {}
+        for jpath, members in jax_leaf_groups(param_shapes).items():
+            (path, p), n = members[0], len(members)
+            shape = ((n,) if is_layered(path) else ()) + tuple(p.shape)
+            axes = nested_get(opt_axes, jpath)
+            axes = tuple(axes) if axes is not None else (None,) * len(p.shape)
+            if is_layered(path):
+                axes = ("layers",) + axes
+            if _factored(shape):
+                nested_set(v, jpath, {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]})
+            else:
+                nested_set(v, jpath, {"v": axes})
+        return {"v": v, "count": None}
+    raise ValueError(name)

@@ -28,8 +28,8 @@ from repro_torch.core import costmodel, simulator
 
 MODS = [costmodel, jax_costmodel]
 # what the JAX package exports and the port has no counterpart of yet
-# (core/conv_shard.py: the mesh item of ROADMAP.md)
-NOT_PORTED = {"make_sharded_conv"}
+# (none since core/conv_shard.py was ported with the mesh layer)
+NOT_PORTED = set()
 
 
 def _same(a, b):
