@@ -132,7 +132,40 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    failed phase 11's 3-call grid trace when this phase ran after phase
    9; the phase records how many of 3 K1 launches a short trace sees
    just before and just after it;
-18. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
+18. wire — the flat cluster's slave processes: phase 7's network and
+   backends with device 1 a ``cuda`` slave process (its own CUDA
+   context, the kernel libraries loaded from the build directory) and
+   device 2 a ``numpy`` one.  Phase 7's training (3 steps) over the shm
+   rings, then phase 5's 16 requests over tcp, each through
+   ``run_hetero`` / ``run_serve`` with the cluster built as
+   ``WireLog``'s ``HeteroCluster`` subclass: its ``_slave_cmd`` runs the
+   protocol module under ``SLAVE_WRAPPER``, which writes a ``cuda`` slave's own
+   K1-K3 launch counts to a file when it leaves, and its overrides log
+   every op scattered to each device.  Step 1 within 1e-5 / 1e-4 of the
+   float64 step and the served outputs within ``SERVE_ATOL`` of the
+   float64 chain; each ``cuda`` slave launched K1 once per conv shard it
+   was sent (beyond its Eq. 1 probe's launches), and K2 and K3 once per
+   backward shard; every training step ships each layer's new kernel
+   shard to each link once, and ``WeightRef`` tokens after it (serving
+   records each kernel shard it ships, with its Cout: a token
+   stands only for the same Eq. 1 split); no slave pid and no ring
+   segment left after ``shutdown``.  Recorded: s/step and req/s
+   beside phases 7's and 5's, each slave's spawn-to-welcome seconds, the
+   bytes, kernels and tokens of each step, the arrays each way and those
+   above the ring's 64 MiB (sent inline on the control socket),
+   ``/dev/shm``'s size, and ``nvidia-smi``'s compute apps as rows and
+   MiB (every process shows as pid 1 in the container);
+19. recover — the same network and backends over shm with heartbeats
+   every 2 s (a 6 s deadline): 4 training steps in one ``run_hetero``.
+   The ``cuda`` slave is SIGKILLed at the first gather of step 2, with
+   ops in flight; the step finishes on the survivors, its loss and
+   params within 1e-5 / 1e-4 of the float64 step 2, the loss detected
+   within the heartbeat deadline.  Before step 3 a new ``cuda`` slave
+   process is admitted (through the same seam, so its launches are
+   counted too), before step 4 it is evicted; Eq. 1's plan (probe
+   times, shares, kernels per device) is recorded after each change, and
+   no pid or segment is left;
+20. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
    width in its own bf16, every earlier phase's tensors and the
    allocator's cache freed first: moonshot-v1-16b-a3b (48 layers, 64
    experts top-6, 56.1 GB of weights; K4 48 times a prefill),
@@ -143,7 +176,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    no launch in decode; ``lm_check`` in fp32 (whisper at full depth,
    moonshot cut to 2 layers and llava to 4 to fit fp32 on the card);
    K4 at every shape the runs gave it;
-19. mesh_train — lm_train's run (``launch/train.py::train``, its config,
+21. mesh_train — lm_train's run (``launch/train.py::train``, its config,
    seed and batches) for 2 steps under the card's (1, 1) mesh
    (``launch/mesh.py::make_host_mesh``, an NCCL group of one) with
    ``tp_mode="megatron"``: the state and batches DTensors, K4 and K5 on
@@ -152,18 +185,18 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    wrappers'; the losses against lm_train's (step 1 within 1e-6, step 2
    within lm_train's own rerun bound, 1e-3); s/step and peak memory
    beside lm_train's;
-20. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
+22. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
    the same mesh: its 4 x 16 tokens must equal lm_serve's;
-21. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
+23. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
    forward's logits through the MoE's expert-parallel mesh path (its
    ``local_map`` body and all-reduce over ``model``) against the
    mesh-less path's, within ``LM_RTOL`` of the largest logit;
-22. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
+24. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
    (``core/conv_shard.py``'s kernel-sharded conv: K1, K2 and K3 through
    ``local_map``) on the mesh, cifar_cnn_500_1500, batch 32, gather
    rules, held against phase 7's float64 step; K1-K3 at its shapes;
    then the §4.1.1 probe (``core/profiling.py``) on the card;
-23. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
+25. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
    subprocesses started together (each owns its fake process group):
    mamba2-370m train_4k on (16, 16) and decode_32k on (2, 16, 16), both
    under 80 GB a device; hymba-1.5b train_4k in megatron and gather;
@@ -175,8 +208,9 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 
 Every wrapper's launch count is set to 0 just before a main-path run
 (serve, train, lm_serve, each lm_train run, the in-process hierarchy,
-each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn) and read
-just after.
+each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn, and the
+wire and recover runs) and read just after; a slave process starts with
+its own counts at 0 and writes them when it leaves.
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -188,7 +222,10 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -276,6 +313,71 @@ MESH_MOE_LAYERS = 2
 DRYRUN_TIMEOUT_S = 420
 # kernels that must build without spills (ptxas's report)
 NO_SPILL = ("conv2d_fwd_kernel", "conv2d_dx_kernel", "conv2d_dw_kernel")
+# recover: the slaves beat every 2 s, so the master's deadline is 6 s
+# (tests/test_fault_tolerance.py's SIGKILL case)
+RECOVER_HEARTBEAT_S = 2.0
+# wire and recover: the master and device 1 on the card (device 1 a slave
+# process), device 2 a numpy slave process; recover admits one more
+# slave of device 1's backend
+WIRE_BACKENDS = ["cuda", "cuda", "numpy"]
+# the flat cluster's slave processes write their launch counts here (the
+# checkout's gitignored build directory)
+WIRE_DIR = ROOT / "build" / "chip_smoke_wire"
+# a slave process run under this wrapper is the protocol module's slave
+# (``protocol.main``); a ``cuda`` slave's K1-K3 launch counts, and the
+# part of them its Eq. 1 probes made, are written as JSON to the file
+# named first on its command line when it leaves: through ``os._exit``,
+# so no atexit hook would run.  Each conv and conv_vjp its backend
+# completes appends its shape ``b h w cin cout k`` as one line to that
+# name plus ``.shapes``, so a slave that is killed leaves its shapes too.
+# A slave of another backend runs as it is (it never imports torch).
+# Nothing in the package changes for it.
+SLAVE_WRAPPER = """
+import importlib, json, os, sys, threading
+out = sys.argv.pop(1)
+from repro_torch.core.cluster import protocol
+if sys.argv[sys.argv.index("--backend") + 1] == "cuda":
+    from repro_torch.core import backends
+    k = importlib.import_module("repro_torch.kernels.conv2d")
+    fns = {"conv2d_fwd": k.conv2d, "conv2d_dx": k.conv2d_dx, "conv2d_dw": k.conv2d_dw}
+    probe = dict.fromkeys(fns, 0)
+    probe_conv_time = backends.probe_conv_time
+
+    def counted_probe(*a, **kw):
+        before = {n: f.launches for n, f in fns.items()}
+        try:
+            return probe_conv_time(*a, **kw)
+        finally:
+            for n, f in fns.items():
+                probe[n] += f.launches - before[n]
+
+    backends.probe_conv_time = counted_probe
+    shapes = open(out + ".shapes", "w", buffering=1)
+    lock = threading.Lock()
+    cls = backends.CudaBackend
+
+    def logged(way, call):
+        def run(self, x, w, *g):
+            y = call(self, x, w, *g)
+            with lock:
+                shapes.write(" ".join(map(str, (way, *x.shape, w.shape[-1], w.shape[0]))) + "\\n")
+            return y
+        return run
+
+    cls.conv = logged("fwd", cls.conv)
+    cls.conv_vjp = logged("bwd", cls.conv_vjp)
+    exit_ = os._exit
+
+    def counted_exit(code):
+        with open(out, "w") as f:
+            json.dump({"pid": os.getpid(), "exit_code": code,
+                       "launches": {n: f.launches for n, f in fns.items()},
+                       "probe_launches": probe}, f)
+        exit_(code)
+
+    os._exit = counted_exit
+protocol.main()
+"""
 
 
 def emit(obj: dict) -> None:
@@ -681,6 +783,276 @@ class SubMasterLog:
                 for dev, p in sorted(self.procs.items())]
 
 
+def compute_app_rows() -> list:
+    """MiB of device memory of each process ``nvidia-smi`` lists as
+    holding a context on the card (its pids are not usable: in the
+    container every process shows as pid 1)."""
+    return [_number(mib) for _, mib in smi_query("--query-compute-apps=pid,used_memory")]
+
+
+def dev_shm() -> dict:
+    """``/dev/shm``: its size and use in MiB, and its entries."""
+    du = shutil.disk_usage("/dev/shm")
+    return {"total_mib": du.total / 2 ** 20, "used_mib": du.used / 2 ** 20,
+            "entries": set(os.listdir("/dev/shm"))}
+
+
+def _arrays(obj) -> list:
+    from repro_torch.core.cluster.codec import map_arrays
+
+    found = []
+    map_arrays(obj, found.append)
+    return found
+
+
+class WireLog:
+    """Watches one ``run_hetero`` or ``run_serve`` call over a process
+    transport (tcp or shm) through the cluster's own seams: while it is
+    entered, ``launch/hetero.py`` builds a ``HeteroCluster`` subclass
+    whose ``_slave_cmd`` runs each slave process under
+    ``SLAVE_WRAPPER`` (its K1-K3 launch counts land in ``WIRE_DIR``),
+    and whose overrides record each slave's spawn-to-welcome seconds,
+    every op scattered to each device with its weight slot (a kernel
+    shipped, a ``WeightRef`` token, or the per-op cache's ``None``), the
+    arrays each way and those above the shm ring's capacity (which
+    ``_shm_pack`` sends inline on the control socket), the bytes,
+    kernels and tokens of each training step, and around ``shutdown``
+    the card's compute apps, ``/dev/shm`` and whether each slave pid is
+    gone.  ``before_step(cluster, i)`` and ``before_gather(cluster,
+    step)`` let a run change the membership or inject a fault."""
+
+    def __init__(self, tag: str, ring_bytes=None, before_step=None, before_gather=None):
+        self.dir = WIRE_DIR / tag
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        self.ring_bytes = ring_bytes  # None: not shm, every array inline
+        self.before_step, self.before_gather = before_step, before_gather
+        self.spawned, self.welcomed, self.procs, self.backends = {}, {}, {}, {}
+        self.ops = collections.defaultdict(collections.Counter)  # device -> op -> n
+        self.steps = []
+        self.kernel_ships = []  # [device, op, the shard's Cout] per kernel shipped
+        self.rings = set()
+        self.shutdown_rec = None
+        self.reset()
+
+    def reset(self):
+        """Zero the running tallies (``reset_stats``: after the probe).
+        ``ops`` runs on: a slave's own counts cover its whole life."""
+        self.tally = collections.Counter()
+        if self.ring_bytes is not None:  # shm: count the inline arrays, 0 too
+            self.tally.update(inline_to_slave=0, inline_to_master=0)
+
+    def counts_path(self, dev) -> Path:
+        return self.dir / f"slave_{dev}.json"
+
+    def sent(self, cluster, sock, msg):
+        from repro_torch.core.cluster.codec import WeightRef
+
+        dev = next(d for d, s in cluster._registry.items() if s is sock)
+        op, payload = msg
+        self.ops[dev][op] += 1
+        w = payload[1]
+        if isinstance(w, WeightRef):
+            w = w.w
+            slot = "kernel" if w is not None else "token"
+        else:
+            slot = "kernel" if w is not None else "cache"
+        self.tally[slot] += 1
+        if slot == "kernel":
+            self.tally["kernel_bytes"] += w.nbytes
+            self.kernel_ships.append([dev, op, int(w.shape[-1])])
+        self._count(payload, "to_slave")
+        if hasattr(sock, "_tx"):  # an shm link: its two ring segments
+            self.rings.update((sock._tx.name, sock._rx.name))
+
+    def _count(self, obj, way):
+        for a in _arrays(obj):
+            self.tally[f"arrays_{way}"] += 1
+            if self.ring_bytes is not None and (a.nbytes == 0 or a.nbytes > self.ring_bytes):
+                self.tally[f"inline_{way}"] += 1
+
+    def step_begin(self, cluster):
+        if self.before_step is not None:
+            self.before_step(cluster, len(self.steps))
+        self._mark = (dict(self.tally), cluster.comm_bytes, time.perf_counter())
+
+    def step_end(self, cluster):
+        tally, comm, t0 = self._mark
+        rec = {k: n - tally.get(k, 0) for k, n in self.tally.items()}
+        rec.update(comm_mib=(cluster.comm_bytes - comm) / 2 ** 20,
+                   s=time.perf_counter() - t0, slave_ids=list(cluster.slave_ids))
+        self.steps.append(rec)
+
+    def before_shutdown(self, cluster):
+        self.shutdown_rec = {"apps_mib_before": compute_app_rows(),
+                             "memory_used_mib_before": memory_used_mib(),
+                             "dev_shm_before": dev_shm()}
+
+    def after_shutdown(self, cluster):
+        r = self.shutdown_rec
+        shm = dev_shm()
+        r.update(apps_mib_after=compute_app_rows(), memory_used_mib_after=memory_used_mib())
+        if None not in (r["memory_used_mib_before"], r["memory_used_mib_after"]):
+            r["freed_mib"] = r["memory_used_mib_before"] - r["memory_used_mib_after"]
+        r.update(
+                 rings=sorted(self.rings), rings_left=sorted(self.rings & shm["entries"]),
+                 dev_shm_after=shm)
+        for key in ("dev_shm_before", "dev_shm_after"):
+            r[key] = {k: v for k, v in r[key].items() if k != "entries"}
+
+    def subclass(self, base):
+        log = self
+
+        class Observed(base):
+            def _slave_cmd(self, dev, slowdown, backend):
+                cmd = super()._slave_cmd(dev, slowdown, backend)
+                at = cmd.index("-m")
+                return [cmd[0], "-c", SLAVE_WRAPPER, str(log.counts_path(dev))] + cmd[at + 2:]
+
+            def _spawn_slave_proc(self, dev, slowdown, backend, env):
+                log.spawned[dev] = time.perf_counter()
+                log.backends[dev] = backend
+                log.procs[dev] = super()._spawn_slave_proc(dev, slowdown, backend, env)
+                return log.procs[dev]
+
+            def _accept_slave(self, timeout_s):
+                chan, dev, meta = super()._accept_slave(timeout_s)
+                log.welcomed[dev] = time.perf_counter()
+                return chan, dev, meta
+
+            def _write_op(self, sock, msg):
+                if not sock.lost:
+                    log.sent(self, sock, msg)
+                super()._write_op(sock, msg)
+
+            def _check_result(self, out):
+                log._count(out, "to_master")
+                return super()._check_result(out)
+
+            def reset_stats(self):
+                super().reset_stats()
+                log.reset()
+
+            def conv_train_step(self, *a, **kw):
+                log.step_begin(self)
+                out = super().conv_train_step(*a, **kw)
+                log.step_end(self)
+                return out
+
+            def gather_conv(self, p):
+                if log.before_gather is not None:
+                    log.before_gather(self, len(log.steps))
+                return super().gather_conv(p)
+
+            def shutdown(self):
+                first = not self._shut
+                if first:
+                    log.before_shutdown(self)
+                super().shutdown()
+                if first:
+                    log.after_shutdown(self)
+
+        return Observed
+
+    def __enter__(self):
+        import repro_torch.launch.hetero as hetero
+
+        self._hetero, self._base = hetero, hetero.HeteroCluster
+        self._shm_before = dev_shm()["entries"]
+        hetero.HeteroCluster = self.subclass(self._base)
+        return self
+
+    def __exit__(self, *exc):
+        self._hetero.HeteroCluster = self._base
+
+    def slaves(self) -> list:
+        """One record per spawned slave process: its backend, pid,
+        spawn-to-welcome seconds, the ops it was sent, its own launch
+        counts (None if it was killed), the shapes its backend's convs
+        and conv_vjps completed (a killed slave's too), and whether it is
+        gone."""
+        out = []
+        for dev, p in sorted(self.procs.items()):
+            path = self.counts_path(dev)
+            counts = json.loads(path.read_text()) if path.exists() else None
+            shapes = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+            shapes_path = Path(f"{path}.shapes")
+            if shapes_path.exists():
+                for ln in shapes_path.read_text().splitlines():
+                    way, *dims = ln.split()
+                    shapes[way][tuple(map(int, dims))] += 1
+            out.append({"device": dev, "backend": self.backends[dev], "pid": p.pid,
+                        "spawn_to_welcome_s": (self.welcomed[dev] - self.spawned[dev]
+                                               if dev in self.welcomed else None),
+                        "ops_sent": dict(self.ops[dev]), "returncode": p.poll(),
+                        "gone": p.poll() is not None and not Path(f"/proc/{p.pid}").exists(),
+                        "counts": counts,
+                        **{f"{way}_by_shape": [list(k) + [n] for k, n in sorted(c.items())]
+                           for way, c in shapes.items()}})
+        return out
+
+    def new_shm_entries(self) -> list:
+        return sorted(dev_shm()["entries"] - self._shm_before)
+
+
+def nonempty(shapes) -> int:
+    """The launches a ``(b, h, w, cin, cout, k)`` counter stands for: a
+    conv with an empty operand launches nothing."""
+    return sum(n for shape, n in shapes.items() if math.prod(shape) > 0)
+
+
+def run_shapes(phase, master_log, master_counts, slaves) -> tuple:
+    """The K1 and K2/K3 shapes of one run over slave processes, the
+    master's (``master_log``, a ``ShapeLog`` of its ``cuda`` backend)
+    and every ``cuda`` slave's, merged.  Fails where a process's shapes
+    do not add up to its own launch counts (a killed slave has none:
+    its shapes are taken as they are).  Returns (fwd, bwd) counters."""
+    fwd, bwd = collections.Counter(master_log.fwd), collections.Counter(master_log.bwd)
+    who = [("the master", master_log.fwd, master_log.bwd, master_counts)]
+    for r in slaves:
+        if r["backend"] != "cuda":
+            continue
+        sf = collections.Counter({tuple(k[:-1]): k[-1] for k in r["fwd_by_shape"]})
+        sb = collections.Counter({tuple(k[:-1]): k[-1] for k in r["bwd_by_shape"]})
+        fwd.update(sf)
+        bwd.update(sb)
+        if r["counts"] is not None:
+            who.append((f"cuda slave {r['device']}", sf, sb, r["counts"]["launches"]))
+    for name, f, b, n in who:
+        got = {"conv2d_fwd": nonempty(f), "conv2d_dx": nonempty(b), "conv2d_dw": nonempty(b)}
+        if got != {k: n[k] for k in got}:
+            fail(f"{phase}: {name}'s conv shapes stand for {got} launches, "
+                 f"it counted {n}")
+    return fwd, bwd
+
+
+def check_slave_launches(phase, slaves, training) -> dict:
+    """Each ``cuda`` slave process that left on its own launched K1 once
+    per conv shard it was sent beyond its probes' launches, and K2 and
+    K3 once per backward shard (none when serving); fails otherwise.
+    Returns its shard launches by kernel name, summed over the slaves."""
+    total = collections.Counter()
+    for r in slaves:
+        if r["backend"] != "cuda":
+            continue
+        if r["counts"] is None:  # killed: it wrote nothing
+            if r["returncode"] == 0:
+                fail(f"{phase}: cuda slave {r['device']} left without its counts")
+            continue
+        shard = {k: n - r["counts"]["probe_launches"][k]
+                 for k, n in r["counts"]["launches"].items()}
+        ops = r["ops_sent"]
+        want = {"conv2d_fwd": ops.get("conv", 0) + ops.get("sconv", 0)}
+        bwd = ops.get("bwd", 0) + ops.get("sbwd", 0)
+        want["conv2d_dx"] = want["conv2d_dw"] = bwd
+        if shard != want or want["conv2d_fwd"] == 0 or (training and bwd == 0):
+            fail(f"{phase}: cuda slave {r['device']} launched {shard} beyond its "
+                 f"probes for the shards it was sent, {want}")
+        r["shard_launches"] = shard
+        total.update(shard)
+    return dict(total)
+
+
 def k1_records_in_a_trace(ks, dev, calls: int = 3) -> int:
     """How many of ``calls`` K1 launches a fresh profiler trace records
     (a short trace can lose kernel records after a large one)."""
@@ -729,14 +1101,16 @@ def path_shapes(ks, kind, dev, shapes, phase, path):
     return recs
 
 
-def float64_steps(cfg, batch, steps, lr, dev):
+def float64_steps(cfg, batch, steps, lr, dev, start=None):
     """``steps`` single-device SGD steps in float64 on the card from the
-    train run's params and batch: ``cnn_loss`` with the plain conv,
-    autograd.  Returns (losses, params after each step)."""
+    train run's params (or ``start``) and batch: ``cnn_loss`` with the
+    plain conv, autograd.  Returns (losses, params after each step)."""
     from repro_torch.launch.hetero import sgd_step, train_inputs
     from repro_torch.models.cnn import cnn_loss
 
     params, images, labels = train_inputs(cfg, batch, dev)
+    if start is not None:
+        params = start
     p = {l: {n: t.double() for n, t in d.items()} for l, d in params.items()}
     images = images.double()
     losses, history = [], []
@@ -776,32 +1150,49 @@ def library_total(recs):
     return total(recs, "library_ms")
 
 
-def entry(kind, source, replaces, runs, dtype=torch.float32):
+def path_totals(rs, dtype) -> dict:
+    return {"plain_ms": total(rs, "plain_ms"), "library_ms": library_total(rs),
+            "bound_ms": bound(total(rs, "flops"), total(rs, "bytes"), dtype)[0]}
+
+
+def entry(kind, source, replaces, runs, dtype=torch.float32, untraced=None):
     """One kernels-line entry over the main-path runs that launched
     it: ``runs`` maps a path to (its shape records, its trace); the
-    bound takes the peak rate of the runs' input ``dtype``."""
+    bound takes the peak rate of the runs' input ``dtype``.
+    ``untraced`` maps a path that ran partly in slave processes, outside
+    this process's counters and profiler, to its shape records: its
+    ``by_path`` entry counts the launches of its master and slaves from
+    their shapes, has no trace time, and stays out of the totals above
+    it but for ``max_abs_err``."""
     recs = [r for rs, _ in runs.values() for r in rs]
+    untraced = untraced or {}
     bound_ms, bound_by = bound(total(recs, "flops"), total(recs, "bytes"), dtype)
     return {
         "name": kind, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(tr["kernels"][kind]["launches"] for _, tr in runs.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in recs + [r for rs in untraced.values() for r in rs]),
         "ms": sum(tr["kernels"][kind]["ms"] for _, tr in runs.values()),
         "plain_ms": total(recs, "plain_ms"),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_total(recs),
         "isolated_ms": total(recs, "ms"),
-        "by_path": {path: {"launches": tr["kernels"][kind]["launches"],
-                           "ms": tr["kernels"][kind]["ms"],
-                           "plain_ms": total(rs, "plain_ms"),
-                           "library_ms": library_total(rs),
-                           "bound_ms": bound(total(rs, "flops"), total(rs, "bytes"),
-                                             dtype)[0]}
-                    for path, (rs, tr) in runs.items()},
-        "per": "all launches of the main-path runs named in by_path; ms: "
+        "by_path": {**{path: {"launches": tr["kernels"][kind]["launches"],
+                              "ms": tr["kernels"][kind]["ms"], **path_totals(rs, dtype)}
+                       for path, (rs, tr) in runs.items()},
+                    **{path: {"launches": sum(r["launches"] for r in rs), "ms": None,
+                              "traced": False, "max_abs_err": max(
+                                  (r["max_abs_err"] for r in rs), default=0.0),
+                              **path_totals(rs, dtype)}
+                       for path, rs in untraced.items()}},
+        "per": "all launches of the traced main-path runs in by_path; ms: "
                "the profiler trace of those runs; plain_ms, library_ms, "
                "isolated_ms: each shape's isolated median times its "
-               "launch count, summed",
+               "launch count, summed; by_path entries with traced false "
+               "(the master and its slave processes) count launches from "
+               "the shapes each process ran, each shape checked against "
+               "the plain version, and are not in the totals but for "
+               "max_abs_err",
     }
 
 
@@ -1519,7 +1910,7 @@ def lm_train_check(ks, dev):
     return rec
 
 
-# -- the mesh layer (phases 19-23) -------------------------------------------
+# -- the mesh layer (phases 21-25) -------------------------------------------
 
 
 def mesh_train(ks, dev, mesh, lm_rec, attn_recs, ssd_recs):
@@ -1869,6 +2260,307 @@ def dryrun_records(mesh_train_rec):
     return out
 
 
+def serve_f64_err(ks, dev, outputs, c1, c2, image, requests, n_check=4) -> float:
+    """Max abs difference of the first ``n_check`` served outputs from a
+    single-device float64 chain on the card (the plain conv, ReLU and
+    pool, the fc head) over the same weights and requests; fails on a
+    wrong shape or a non-finite output."""
+    from repro_torch.launch.hetero import relu_pool, serve_inputs
+
+    weights, fc, images = serve_inputs(SEED, c1, c2, image, requests)
+    x = torch.from_numpy(np.stack(images[:n_check])).to(dev, torch.float64)
+    for wk in weights:
+        y = ks.conv2d_ref(x, torch.from_numpy(wk).to(dev, torch.float64))
+        x = torch.from_numpy(relu_pool(y.cpu().numpy())).to(dev)
+    want = (x.reshape(n_check, -1) @ torch.from_numpy(fc).to(dev, torch.float64)).cpu().numpy()
+    got = np.stack(outputs[:n_check])
+    if got.shape != (n_check, 10) or not np.isfinite(got).all():
+        fail(f"served outputs of shape {got.shape} or non-finite")
+    return float(np.abs(got - want).max())
+
+
+def step_errs(phase, losses, history, ref_losses, ref_params, held) -> tuple:
+    """Each step's loss and param errors against the float64 steps;
+    fails unless the first ``held`` steps are within LOSS_ATOL and
+    PARAM_ATOL."""
+    l_errs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    p_errs = [params_err(a, b) for a, b in zip(history, ref_params)]
+    for i in range(held):
+        if l_errs[i] > LOSS_ATOL or p_errs[i] > PARAM_ATOL:
+            fail(f"{phase}: step {i + 1} vs the float64 step, loss err {l_errs[i]} "
+                 f"(atol {LOSS_ATOL}), param err {p_errs[i]} (atol {PARAM_ATOL})")
+    return l_errs, p_errs
+
+
+def local_step_errs(phase, cfg, batch, lr, dev, losses, history) -> tuple:
+    """Each step of a run against one float64 step taken from the run's
+    own params before it (the initial params for step 1), so no step
+    inherits an earlier step's error; fails unless every step is within
+    LOSS_ATOL and PARAM_ATOL.  Returns (loss errs, param errs)."""
+    l_errs, p_errs = [], []
+    for i, (loss, got) in enumerate(zip(losses, history)):
+        (want_loss,), (want,) = float64_steps(cfg, batch, 1, lr, dev,
+                                              start=history[i - 1] if i else None)
+        l_errs.append(abs(loss - want_loss))
+        p_errs.append(params_err(got, want))
+        if l_errs[-1] > LOSS_ATOL or p_errs[-1] > PARAM_ATOL:
+            fail(f"{phase}: step {i + 1} vs one float64 step from the run's own "
+                 f"params, loss err {l_errs[-1]} (atol {LOSS_ATOL}), param err "
+                 f"{p_errs[-1]} (atol {PARAM_ATOL})")
+    return l_errs, p_errs
+
+
+def worst_leaves(history, ref_params) -> list:
+    """Each step's param leaf furthest from the float64 step's."""
+    return [max(((f"{l}.{n}", (got[l][n].double() - want[l][n]).abs().max().item())
+                 for l in want for n in want[l]), key=lambda t: t[1])
+            for got, want in zip(history, ref_params)]
+
+
+def check_left(phase, log, slaves):
+    """Fails if a slave pid or one of the cluster's ring segments
+    outlived ``shutdown``.  What else appeared in ``/dev/shm`` meanwhile
+    (another program's segment, say) is recorded, not held."""
+    left = [r["pid"] for r in slaves if not r["gone"]]
+    if left:
+        fail(f"{phase}: slave pids left after shutdown: {left}")
+    if log.shutdown_rec["rings_left"]:
+        fail(f"{phase}: ring segments left in /dev/shm after shutdown: "
+             f"{log.shutdown_rec['rings_left']}")
+    log.shutdown_rec["other_new_dev_shm_entries"] = sorted(
+        set(log.new_shm_entries()) - set(log.rings))
+
+
+def wire_phase(ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params,
+               train_rec, serve_rec) -> tuple:
+    """Phase 18: the flat cluster's ``cuda`` and ``numpy`` slave
+    processes, training over shm and serving over tcp.  Returns (its two
+    JSON records, the cuda slaves' shard launches by run, K1-K3 against
+    their plain versions at every shape the two runs gave them in the
+    master and the slaves)."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.cluster.transport import ShmTransport
+    from repro_torch.launch.hetero import run_hetero, run_serve
+
+    backends = WIRE_BACKENDS
+    recs, launches = [], {}
+    builds_before = build_dir_state()
+    with WireLog("train", ring_bytes=ShmTransport.DEFAULT_RING_BYTES) as log, \
+            ShapeLog(get_backend("cuda")) as master_log:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        rec, hist = run_hetero([1.0, 1.0, 1.0], backends, transport="shm", **train_kw)
+        run_s = time.perf_counter() - t_run
+        master_counts = read_counts(ks, CONV_KINDS)
+    if not np.isfinite(rec["losses"]).all():
+        fail(f"wire train: non-finite losses {rec['losses']}")
+    # held: each step against one float64 step from the run's own params;
+    # recorded: each step against the float64 run from the start
+    local_l, local_p = local_step_errs("wire train", cfg, train_kw["batch"], train_kw["lr"],
+                                       dev, rec["losses"], hist)
+    l_errs, p_errs = step_errs("wire train", rec["losses"], hist, ref_losses, ref_params, 1)
+    slaves = log.slaves()
+    launches["wire_train"] = check_slave_launches("wire train", slaves, training=True)
+    fwd, bwd = run_shapes("wire train", master_log, master_counts, slaves)
+    check_left("wire train", log, slaves)
+    n_links = len(backends) - 1
+    for i, st in enumerate(log.steps):
+        # each step's SGD update makes new kernels: a new cache version, so
+        # each layer's shard crosses each link once, and every other op of
+        # the step carries its token
+        if st.get("kernel", 0) != 2 * n_links or st.get("token", 0) == 0:
+            fail(f"wire train: step {i + 1} shipped {st.get('kernel', 0)} kernel shards "
+                 f"(want {2 * n_links}) and {st.get('token', 0)} WeightRef tokens")
+    recs.append({
+        "phase": "wire", "run": "train", "net": f"cifar_cnn_{c1}_{c2}", "backends": backends,
+        "transport": "shm", "ring_mib": ShmTransport.DEFAULT_RING_BYTES / 2 ** 20,
+        **{k: train_kw[k] for k in ("batch", "microbatches", "steps", "lr", "partition")},
+        "losses": rec["losses"], "local_loss_err_by_step": local_l,
+        "local_param_err_by_step": local_p, "loss_err_by_step": l_errs,
+        "param_err_by_step": p_errs, "worst_param_leaf_by_step": worst_leaves(hist, ref_params),
+        "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+        "held": "every step against one float64 step from the run's own params "
+                "(local_*); *_err_by_step: against the float64 run from the start",
+        "s_per_step": rec["wall_s"] / train_kw["steps"], "wall_s": rec["wall_s"],
+        "run_s": run_s, "inproc_s_per_step": train_rec["s_per_step"],
+        "probe_s": rec["probe_s"], "shares": rec["shares"],
+        "kernels_per_device_after": rec["kernels_per_device"],
+        "measured_bandwidth_mbps": rec["measured_bandwidth_mbps"],
+        "comm_mib": rec["comm_mb"], "timing_s": rec["timing"],
+        "wire": dict(log.tally), "steps_wire": log.steps, "kernel_ships": log.kernel_ships,
+        "master_launches": master_counts,
+        "master_fwd_by_shape": [list(k) + [n] for k, n in sorted(master_log.fwd.items())],
+        "master_bwd_by_shape": [list(k) + [n] for k, n in sorted(master_log.bwd.items())],
+        "slaves": slaves, "slave_shard_launches": launches["wire_train"],
+        "shutdown": log.shutdown_rec,
+        "kernel_libraries_reloaded_not_rebuilt": build_dir_state() == builds_before})
+    if not recs[-1]["kernel_libraries_reloaded_not_rebuilt"]:
+        fail("wire train: a slave process rebuilt a kernel library")
+    emit(recs[-1])
+
+    with WireLog("serve") as log, ShapeLog(get_backend("cuda")) as master_log:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        rec, outputs = run_serve([1.0, 1.0, 1.0], backends, transport="tcp", **serve_kw)
+        run_s = time.perf_counter() - t_run
+        master_counts = read_counts(ks, CONV_KINDS)
+    if not rec["all_ok"]:
+        fail(f"wire serve: statuses {rec['statuses']}")
+    err = serve_f64_err(ks, dev, outputs, c1, c2, serve_kw["image_size"], serve_kw["requests"])
+    if err > SERVE_ATOL:
+        fail(f"wire serve: max abs err {err} vs the float64 chain > {SERVE_ATOL}")
+    slaves = log.slaves()
+    launches["wire_serve"] = check_slave_launches("wire serve", slaves, training=False)
+    serve_fwd, serve_bwd = run_shapes("wire serve", master_log, master_counts, slaves)
+    if serve_bwd:
+        fail(f"wire serve: backward shards while serving: {dict(serve_bwd)}")
+    fwd.update(serve_fwd)
+    check_left("wire serve", log, slaves)
+    recs.append({
+        "phase": "wire", "run": "serve", "net": f"cifar_cnn_{c1}_{c2}", "backends": backends,
+        "transport": "tcp", "requests": serve_kw["requests"],
+        "max_batch": serve_kw["max_batch"], "statuses": rec["statuses"],
+        "throughput_rps": rec["throughput_rps"], "p50_ms": rec["p50_ms"],
+        "p99_ms": rec["p99_ms"], "wall_s": rec["wall_s"], "run_s": run_s,
+        "inproc_throughput_rps": serve_rec["throughput_rps"],
+        "inproc_p50_ms": serve_rec["p50_ms"], "probe_s": rec["probe_s"],
+        "shares": rec["shares"], "kernels_per_device_after": rec["kernels_per_device"],
+        "max_abs_err_vs_f64_chain": err, "atol": SERVE_ATOL,
+        "comm_mib": rec["comm_mb"], "wire": dict(log.tally),
+        # the serving weights are static, but a token only stands for the
+        # shard of the same Eq. 1 counts: each kernel shipped, with the
+        # shard's Cout, shows whether the split moved between slabs
+        "kernel_ships": log.kernel_ships,
+        "master_launches": master_counts,
+        "master_fwd_by_shape": [list(k) + [n] for k, n in sorted(master_log.fwd.items())],
+        "slaves": slaves,
+        "slave_shard_launches": launches["wire_serve"], "shutdown": log.shutdown_rec})
+    emit(recs[-1])
+    shape_recs = conv_path_shapes(ks, dev, fwd, bwd, "wire")
+    return recs, launches, shape_recs
+
+
+def conv_path_shapes(ks, dev, fwd, bwd, path) -> dict:
+    """K1 at every forward shape and K2 and K3 at every backward shape
+    of a path, each against its plain version (``path_shapes``)."""
+    return {"conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, fwd, "main_path_shape", path),
+            "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, bwd, "main_path_shape", path),
+            "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, bwd, "main_path_shape", path)}
+
+
+def plan_record(cluster, c1, c2, event) -> dict:
+    from repro_torch.core.partitioner import workload_shares
+
+    return {"event": event, "slave_ids": list(cluster.slave_ids),
+            "backends": list(cluster.backends),
+            "probe_s": [float(t) for t in cluster.probe_times],
+            "shares": [float(x) for x in workload_shares(cluster.probe_times)],
+            "kernels_per_device": {"c1": cluster.shares_for(c1).tolist(),
+                                   "c2": cluster.shares_for(c2).tolist()}}
+
+
+def recover_phase(ks, dev, cfg, c1, c2, train_kw) -> tuple:
+    """Phase 19: SIGKILL the ``cuda`` slave process mid-step 2 over shm,
+    then admit a new ``cuda`` slave before step 3 and evict it before
+    step 4.  Returns (its JSON record, the cuda slaves' shard launches,
+    K1-K3 against their plain versions at every shape the run gave them
+    in the master and the slaves)."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.cluster.transport import ShmTransport
+    from repro_torch.launch.hetero import run_hetero
+
+    backends = WIRE_BACKENDS
+    steps = 4
+    kw = dict(train_kw, steps=steps)
+    ref_losses, ref_params = float64_steps(cfg, kw["batch"], steps, kw["lr"], dev)
+    plans, events = [], {}
+
+    def before_gather(cluster, step):
+        if step == 1 and not events:
+            pos = cluster.backends.index(backends[1], 1) - 1
+            events.update(device=cluster.slave_ids[pos], proc=cluster.procs[pos],
+                          plan_before=plan_record(cluster, c1, c2, "before the kill"))
+            events["t"] = time.monotonic()
+            events["proc"].kill()
+
+    def before_step(cluster, step):
+        if step == 2:
+            plans.append(plan_record(cluster, c1, c2, "after the kill"))
+            t0 = time.perf_counter()
+            events["admitted"] = cluster.admit(slowdown=1.0, backend=backends[1])
+            events["admit_s"] = time.perf_counter() - t0
+            plans.append(plan_record(cluster, c1, c2, "after the admit"))
+        elif step == 3:
+            t0 = time.perf_counter()
+            cluster.evict(events["admitted"])
+            events["evict_s"] = time.perf_counter() - t0
+            plans.append(plan_record(cluster, c1, c2, "after the evict"))
+
+    with WireLog("recover", ring_bytes=ShmTransport.DEFAULT_RING_BYTES,
+                 before_step=before_step, before_gather=before_gather) as log, \
+            ShapeLog(get_backend("cuda")) as master_log:
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        rec, hist = run_hetero([1.0, 1.0, 1.0], backends, transport="shm",
+                               heartbeat_s=RECOVER_HEARTBEAT_S, **kw)
+        run_s = time.perf_counter() - t_run
+        master_counts = read_counts(ks, CONV_KINDS)
+    if not np.isfinite(rec["losses"]).all():
+        fail(f"recover: non-finite losses {rec['losses']}")
+    # held: each step against one float64 step from the run's own params
+    # (step 2 the survivors finished, step 3 the admitted slave's);
+    # recorded: each step against the float64 run from the start
+    local_l, local_p = local_step_errs("recover", cfg, kw["batch"], kw["lr"], dev,
+                                       rec["losses"], hist)
+    l_errs, p_errs = step_errs("recover", rec["losses"], hist, ref_losses, ref_params, 0)
+    failures = rec["failures"]
+    if len(failures) != 1 or failures[0]["device"] != events["device"]:
+        fail(f"recover: failures {failures}, the killed slave was device {events['device']}")
+    detect_s = failures[0]["t_detected"] - events["t"]
+    timeout_s = 3.0 * RECOVER_HEARTBEAT_S
+    if not 0.0 <= detect_s < timeout_s:
+        fail(f"recover: the kill was detected after {detect_s} s, not within {timeout_s}")
+    if rec["timing"]["recompute_s"] <= 0.0:
+        fail("recover: the master recomputed none of the lost shards")
+    slaves = log.slaves()
+    admitted = next((r for r in slaves if r["device"] == events["admitted"]), None)
+    if admitted is None or admitted["backend"] != backends[1] or admitted["counts"] is None:
+        fail(f"recover: the admitted cuda slave did not run and leave: {admitted}")
+    if log.steps[2]["slave_ids"] != plans[1]["slave_ids"] or \
+            log.steps[3]["slave_ids"] != plans[2]["slave_ids"]:
+        fail(f"recover: steps 3 and 4 ran on {[s['slave_ids'] for s in log.steps]}")
+    launches = check_slave_launches("recover", slaves, training=True)
+    fwd, bwd = run_shapes("recover", master_log, master_counts, slaves)
+    check_left("recover", log, slaves)
+    out = {
+        "phase": "recover", "net": f"cifar_cnn_{c1}_{c2}", "backends": backends,
+        "transport": "shm", "heartbeat_s": RECOVER_HEARTBEAT_S,
+        "heartbeat_timeout_s": timeout_s, "steps": steps,
+        **{k: kw[k] for k in ("batch", "microbatches", "lr", "partition")},
+        "victim_device": events["device"], "victim_pid": events["proc"].pid,
+        "victim_returncode": events["proc"].returncode, "detect_s": detect_s,
+        "failure": {k: v for k, v in failures[0].items() if k != "t_detected"},
+        "recompute_s": rec["timing"]["recompute_s"],
+        "admitted_device": events["admitted"], "admit_s": events["admit_s"],
+        "evict_s": events["evict_s"],
+        "plans": [events["plan_before"]] + plans,
+        "losses": rec["losses"], "f64_losses": ref_losses,
+        "local_loss_err_by_step": local_l, "local_param_err_by_step": local_p,
+        "loss_err_by_step": l_errs, "param_err_by_step": p_errs,
+        "worst_param_leaf_by_step": worst_leaves(hist, ref_params),
+        "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+        "held": "every step against one float64 step from the run's own params "
+                "(local_*); *_err_by_step: against the float64 run from the start",
+        "step_s": [st["s"] for st in log.steps], "wall_s": rec["wall_s"], "run_s": run_s,
+        "wire": dict(log.tally), "steps_wire": log.steps,
+        "master_launches": master_counts,
+        "master_fwd_by_shape": [list(k) + [n] for k, n in sorted(master_log.fwd.items())],
+        "master_bwd_by_shape": [list(k) + [n] for k, n in sorted(master_log.bwd.items())],
+        "slaves": slaves, "slave_shard_launches": launches, "shutdown": log.shutdown_rec}
+    emit(out)
+    return out, launches, conv_path_shapes(ks, dev, fwd, bwd, "recover")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
@@ -1882,14 +2574,7 @@ def main() -> int:
         fail(f"repro_torch imported from {repro_torch.__file__}, not {SRC}")
     from repro_torch.core.backends import get_backend
     from repro_torch.kernels import _build
-    from repro_torch.launch.hetero import (
-        relu_pool,
-        run_hetero,
-        run_serve,
-        serve_inputs,
-        sgd_step,
-        train_inputs,
-    )
+    from repro_torch.launch.hetero import run_hetero, run_serve, sgd_step, train_inputs
     from repro_torch.models.cnn import cnn_loss, conv_fn_for_backend, make_cnn_config
 
     t_start = time.perf_counter()
@@ -2026,19 +2711,11 @@ def main() -> int:
     if serve_trace["kernels"]["conv2d_fwd"]["launches"] != serve_counts["conv2d_fwd"]:
         fail(f"serve: the trace holds {serve_trace['kernels']['conv2d_fwd']} "
              f"kernel launches, the wrapper counted {serve_counts['conv2d_fwd']}")
-    weights, fc, images = serve_inputs(SEED, c1, c2, image, requests)
     n_check = 4
-    x = torch.from_numpy(np.stack(images[:n_check])).to(dev, torch.float64)
-    for wk in weights:
-        y = ks.conv2d_ref(x, torch.from_numpy(wk).to(dev, torch.float64))
-        x = torch.from_numpy(relu_pool(y.cpu().numpy())).to(dev)
-    want = (x.reshape(n_check, -1) @ torch.from_numpy(fc).to(dev, torch.float64)).cpu().numpy()
-    got = np.stack(outputs[:n_check])
-    if got.shape != (n_check, 10) or not np.isfinite(got).all():
-        fail(f"serve: outputs of shape {got.shape} or non-finite")
-    serve_err = float(np.abs(got - want).max())
+    serve_err = serve_f64_err(ks, dev, outputs, c1, c2, image, requests, n_check)
     if serve_err > SERVE_ATOL:
         fail(f"serve: max abs err {serve_err} vs the float64 chain > {SERVE_ATOL}")
+    serve_rec = rec
     emit({"phase": "serve", "net": f"cifar_cnn_{c1}_{c2}", "backends": backends,
           "slowdowns": [1.0, 1.0, 1.0], "partition": "kernel",
           "requests": requests, "max_batch": max_batch,
@@ -2377,7 +3054,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 18. the rest of the model zoo at full width -------------------------
+    # -- 18-19. the flat cluster's slave processes -------------------------
+    train_kw = dict(device="cuda", train_pipeline=True, microbatches=micro, c1=c1,
+                    c2=c2, batch=batch, steps=steps, lr=lr, partition="kernel")
+    serve_kw = dict(device="cuda", c1=c1, c2=c2, image_size=image, requests=requests,
+                    max_batch=max_batch, partition="kernel", deadline_s=600.0, seed=SEED)
+    _, slave_launches, wire_recs = wire_phase(
+        ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params,
+        {"s_per_step": trec["wall_s"] / steps}, serve_rec)
+    _, slave_launches["recover"], recover_recs = recover_phase(ks, dev, cfg, c1, c2,
+                                                               train_kw)
+    process_recs = {kind: {"wire": wire_recs[kind], "recover": recover_recs[kind]}
+                    for kind in CONV_KINDS}
+
+    # -- 20. the rest of the model zoo at full width -------------------------
     zoo_runs = {}
     for arch, zb, zprompt, znew, k4, check_layers in ZOO:
         emit({"phase": "lm_zoo", "arch": arch, "event": "start",
@@ -2392,7 +3082,7 @@ def main() -> int:
                                       z_trace)
         torch.cuda.empty_cache()
 
-    # -- 19-22. the mesh layer on the card's (1, 1) mesh ---------------------
+    # -- 21-24. the mesh layer on the card's (1, 1) mesh ---------------------
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh("cuda")
@@ -2407,7 +3097,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 23. the dry run at 256 / 512 GPUs and on the card's mesh -----------
+    # -- 25. the dry run at 256 / 512 GPUs and on the card's mesh -----------
     for r in dryrun_records(mt_rec):
         emit(r)
 
@@ -2417,17 +3107,20 @@ def main() -> int:
               {"serve": (serve_recs, serve_trace),
                "train": (train_recs["conv2d_fwd"], train_trace),
                "hierarchy": (hier_recs["conv2d_fwd"], hier_trace),
-               "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace)}),
+               "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace)},
+              untraced=process_recs["conv2d_fwd"]),
         entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:94",
               {"train": (train_recs["conv2d_dx"], train_trace),
                "hierarchy": (hier_recs["conv2d_dx"], hier_trace),
-               "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace)}),
+               "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace)},
+              untraced=process_recs["conv2d_dx"]),
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
               {"train": (train_recs["conv2d_dw"], train_trace),
                "hierarchy": (hier_recs["conv2d_dw"], hier_trace),
-               "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace)}),
+               "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace)},
+              untraced=process_recs["conv2d_dw"]),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
               {"lm_serve": (attn_recs, lm_trace), "lm_train": (train_attn_recs,
@@ -2439,6 +3132,12 @@ def main() -> int:
                "lm_train": (train_ssd_recs, train_lm_trace),
                "mesh_train": (mt_ssd, mt_trace)}, dtype=torch.float32),
     ]
+    # the cuda slave processes' own launches (outside this process's
+    # counters and traces), by run
+    for k in kernels[:3]:
+        by_run = {run: n.get(k["name"], 0) for run, n in slave_launches.items()}
+        k.update(slave_process_launches=sum(by_run.values()),
+                 slave_process_launches_by_run=by_run)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):
         fail("the JAX package or jax was imported")

@@ -2,12 +2,14 @@
 
 Counterpart of ``repro/configs/__init__.py``: the paper's four CIFAR CNN
 sizes (``cifar_cnn.CONFIGS``) and the ten model-zoo architectures, one
-small data module each; the dry runs' input shapes (``INPUT_SHAPES``)
-and their stand-ins (``input_specs``, ``shapes_for_arch``).
+small data module each (``all_configs`` maps every arch id to its
+config); the dry runs' input shapes (``INPUT_SHAPES``) and their
+stand-ins (``input_specs``, ``shapes_for_arch``).
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
     AudioStubConfig,
@@ -45,6 +47,11 @@ def get_config(arch_id: str):
         return CONFIGS[arch_id]
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every model-zoo architecture's published config, by arch id."""
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 from repro_torch.configs.input_specs import input_specs, shapes_for_arch  # noqa: E402,F401

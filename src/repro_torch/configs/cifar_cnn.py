@@ -8,3 +8,4 @@ CONFIGS = {
     )
     for c1, c2 in [(50, 500), (150, 800), (300, 1000), (500, 1500)]
 }
+CONFIG = CONFIGS["cifar_cnn_500_1500"]  # the paper's largest (headline) net

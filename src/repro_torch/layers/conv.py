@@ -46,3 +46,10 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
         return local_max_pool(x, window, stride)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """VALID average-pool over the H and W axes of NHWC x: each window's
+    sum over ``window * window``."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)

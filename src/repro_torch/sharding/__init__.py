@@ -7,6 +7,7 @@ from repro_torch.sharding.axes import (
     LOGICAL_RULES_ZERO1,
     AxisRules,
     PartitionSpec,
+    logical_to_mesh_spec,
     placements_for_spec,
 )
 from repro_torch.sharding.partitioning import (
@@ -26,6 +27,7 @@ __all__ = [
     "LOGICAL_RULES_MEGATRON",
     "LOGICAL_RULES_ZERO1",
     "PartitionSpec",
+    "logical_to_mesh_spec",
     "placements_for_spec",
     "constrain",
     "constrain_logical_tree",

@@ -249,6 +249,13 @@ LOGICAL_RULES_ZERO1 = AxisRules(
 )
 
 
+def logical_to_mesh_spec(
+    rules: AxisRules, logical_axes: Sequence[Optional[str]]
+) -> PartitionSpec:
+    """The mesh spec of one array from its logical axis names."""
+    return rules.spec(*logical_axes)
+
+
 def placements_for_spec(mesh_dim_names: Sequence[str], spec: Sequence[MeshAxes]) -> Tuple:
     """The DTensor placements of ``spec`` on a mesh with these dimension
     names: ``Shard(d)`` on every mesh dimension that tensor dimension d
