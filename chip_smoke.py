@@ -165,7 +165,39 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    counted too), before step 4 it is evicted; Eq. 1's plan (probe
    times, shares, kernels per device) is recorded after each change, and
    no pid or segment is left;
-20. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
+20. codec — the wire codec between the master and phase 18's ``cuda`` and
+   ``numpy`` slave processes over shm.  (1) Phase 7's network, batch,
+   microbatches and lr for 2 steps under each of ``CODEC_SPECS`` (int8,
+   bf16, top-k 0.05 of the gradient slices with error feedback), through
+   ``WireLog``, which also records each op's canonical bytes before its
+   link encodes it, the encoded message, and each result after its link
+   decodes it: the encoded over raw bytes of the same messages held
+   under 1/3.5 for int8 (the reference's ratio), at most half the float
+   bytes plus the rest for bf16, and for top-k each sparse slice at 8
+   bytes a kept entry plus its shape token, the results in fp32; top-k's
+   step-1 loss within 1e-5 of float64 (its forward is uncompressed);
+   each leaf's update against one float64 step from the same params
+   recorded, not held.  (2) tests/test_codec_accuracy.py's own workload
+   through a ``cuda`` master and a ``cuda`` slave process over shm,
+   probe times pinned: int8's dW within 1e-2 and dx within 5e-2 of the
+   fp32 wire at more than 3.5x fewer bytes, top-k's 8-step loss drop
+   above 0.7x fp32's at fewer bytes.  Every ``cuda`` slave's launches
+   equal its shards, every shape meets the plain version, no pid or
+   segment is left;
+21. admission — a ``ClusterServer`` over tcp with a ``cuda`` master, a
+   ``cuda`` and a ``numpy`` slave process (heartbeats every 2 s),
+   serving the headline network with ``run_serve``'s weights: (a) 16
+   requests into a queue of 8 before ``start()``: 8 ``rejected``, 8 ok
+   within ``SERVE_ATOL`` of the float64 chain; (b) 8 requests with a
+   1 ms deadline among 8 live ones: all 8 ``expired`` with no output,
+   and the master's and the ``cuda`` slave's convs cover the 8 live
+   images a layer, no more; (c) the ``cuda`` slave SIGKILLed from the
+   first between stage: every response ok with retries, one failure,
+   the detection time; (d) an ``AutoScaler`` on the survivors admits a
+   ``cuda`` slave process for a burst of 12 and evicts it when the queue
+   drains, its launches equal to its shards.  req/s, p50 and p99 and
+   the status counts of each; no pid left;
+22. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
    width in its own bf16, every earlier phase's tensors and the
    allocator's cache freed first: moonshot-v1-16b-a3b (48 layers, 64
    experts top-6, 56.1 GB of weights; K4 48 times a prefill),
@@ -176,7 +208,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    no launch in decode; ``lm_check`` in fp32 (whisper at full depth,
    moonshot cut to 2 layers and llava to 4 to fit fp32 on the card);
    K4 at every shape the runs gave it;
-21. mesh_train — lm_train's run (``launch/train.py::train``, its config,
+23. mesh_train — lm_train's run (``launch/train.py::train``, its config,
    seed and batches) for 2 steps under the card's (1, 1) mesh
    (``launch/mesh.py::make_host_mesh``, an NCCL group of one) with
    ``tp_mode="megatron"``: the state and batches DTensors, K4 and K5 on
@@ -185,18 +217,18 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    wrappers'; the losses against lm_train's (step 1 within 1e-6, step 2
    within lm_train's own rerun bound, 1e-3); s/step and peak memory
    beside lm_train's;
-22. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
+24. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
    the same mesh: its 4 x 16 tokens must equal lm_serve's;
-23. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
+25. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
    forward's logits through the MoE's expert-parallel mesh path (its
    ``local_map`` body and all-reduce over ``model``) against the
    mesh-less path's, within ``LM_RTOL`` of the largest logit;
-24. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
+26. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
    (``core/conv_shard.py``'s kernel-sharded conv: K1, K2 and K3 through
    ``local_map``) on the mesh, cifar_cnn_500_1500, batch 32, gather
    rules, held against phase 7's float64 step; K1-K3 at its shapes;
    then the §4.1.1 probe (``core/profiling.py``) on the card;
-25. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
+27. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
    subprocesses started together (each owns its fake process group):
    mamba2-370m train_4k on (16, 16) and decode_32k on (2, 16, 16), both
    under 80 GB a device; hymba-1.5b train_4k in megatron and gather;
@@ -209,8 +241,10 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 Every wrapper's launch count is set to 0 just before a main-path run
 (serve, train, lm_serve, each lm_train run, the in-process hierarchy,
 each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn, and the
-wire and recover runs) and read just after; a slave process starts with
-its own counts at 0 and writes them when it leaves.
+wire, recover, codec and admission runs) and read just after; a slave
+process starts with its own counts at 0 and writes them when it leaves,
+with whether it imported ``ml_dtypes`` (the run fails if any process
+did: the bf16 wire stage is numpy only).
 Then, on lines of their own: the ``nvidia-smi`` line, the kernels line (``{"kernels": [...]}``) and,
 last, ``{"ok": true, "device": ...}``.  Any mismatch or failure raises
 and exits non-zero; without a card, or without the rest of the
@@ -220,6 +254,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -320,22 +355,32 @@ RECOVER_HEARTBEAT_S = 2.0
 # process), device 2 a numpy slave process; recover admits one more
 # slave of device 1's backend
 WIRE_BACKENDS = ["cuda", "cuda", "numpy"]
+# codec: the wire codec's stages at full width, 2 training steps each over
+# shm (each spawns a cuda slave process: Part 1's time is mostly spawns)
+CODEC_SPECS = ("int8", "bf16", "grads=topk:0.05")
+CODEC_STEPS = 2
+# admission: run_serve's weights and images (16 drawn), and the deadline of
+# the requests that must expire before start() (they wait 50 ms)
+ADMISSION_IMAGES = 16
+ADMISSION_DEADLINE_S = 1e-3
 # the flat cluster's slave processes write their launch counts here (the
 # checkout's gitignored build directory)
 WIRE_DIR = ROOT / "build" / "chip_smoke_wire"
 # a slave process run under this wrapper is the protocol module's slave
-# (``protocol.main``); a ``cuda`` slave's K1-K3 launch counts, and the
-# part of them its Eq. 1 probes made, are written as JSON to the file
-# named first on its command line when it leaves: through ``os._exit``,
-# so no atexit hook would run.  Each conv and conv_vjp its backend
-# completes appends its shape ``b h w cin cout k`` as one line to that
-# name plus ``.shapes``, so a slave that is killed leaves its shapes too.
-# A slave of another backend runs as it is (it never imports torch).
-# Nothing in the package changes for it.
+# (``protocol.main``).  When it leaves (through ``os._exit``, so no atexit
+# hook would run) it writes to the file named first on its command line,
+# as JSON, its pid, its exit code and whether ``ml_dtypes`` was imported
+# in it; a ``cuda`` slave adds its K1-K3 launch counts and the part of
+# them its Eq. 1 probes made.  Each conv and conv_vjp a ``cuda`` slave's
+# backend completes appends its shape ``b h w cin cout k`` as one line to
+# that name plus ``.shapes``, so a slave that is killed leaves its shapes
+# too.  A slave of another backend never imports torch.  Nothing in the
+# package changes for it.
 SLAVE_WRAPPER = """
 import importlib, json, os, sys, threading
 out = sys.argv.pop(1)
 from repro_torch.core.cluster import protocol
+fns = None
 if sys.argv[sys.argv.index("--backend") + 1] == "cuda":
     from repro_torch.core import backends
     k = importlib.import_module("repro_torch.kernels.conv2d")
@@ -366,16 +411,17 @@ if sys.argv[sys.argv.index("--backend") + 1] == "cuda":
 
     cls.conv = logged("fwd", cls.conv)
     cls.conv_vjp = logged("bwd", cls.conv_vjp)
-    exit_ = os._exit
+exit_ = os._exit
 
-    def counted_exit(code):
-        with open(out, "w") as f:
-            json.dump({"pid": os.getpid(), "exit_code": code,
-                       "launches": {n: f.launches for n, f in fns.items()},
-                       "probe_launches": probe}, f)
-        exit_(code)
+def counted_exit(code):
+    rec = {"pid": os.getpid(), "exit_code": code, "ml_dtypes": "ml_dtypes" in sys.modules}
+    if fns is not None:
+        rec.update(launches={n: f.launches for n, f in fns.items()}, probe_launches=probe)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    exit_(code)
 
-    os._exit = counted_exit
+os._exit = counted_exit
 protocol.main()
 """
 
@@ -833,6 +879,8 @@ class WireLog:
         self.kernel_ships = []  # [device, op, the shard's Cout] per kernel shipped
         self.rings = set()
         self.shutdown_rec = None
+        self.topk_faults = []  # top-k slices not of the size the spec gives
+        self.membership = []  # [event, device, seconds] of each admit and evict
         self.reset()
 
     def reset(self):
@@ -848,6 +896,7 @@ class WireLog:
     def sent(self, cluster, sock, msg):
         from repro_torch.core.cluster.codec import WeightRef
 
+        self._raw(msg, "down")
         dev = next(d for d, s in cluster._registry.items() if s is sock)
         op, payload = msg
         self.ops[dev][op] += 1
@@ -865,6 +914,40 @@ class WireLog:
         if hasattr(sock, "_tx"):  # an shm link: its two ring segments
             self.rings.update((sock._tx.name, sock._rx.name))
 
+    def _raw(self, msg, way):
+        """The canonical bytes of a message as the master holds it (an
+        op before its link encodes it, a result after it decodes it) and
+        the part of them in float arrays."""
+        from repro_torch.core.cluster.codec import wire_nbytes
+
+        self.tally[f"raw_{way}"] += wire_nbytes(msg)
+        self.tally[f"float_{way}"] += sum(a.nbytes for a in _arrays(msg) if a.dtype.kind == "f")
+
+    def encoded(self, link_codec, msg, out):
+        """One master->slave message as its link's codec encoded it:
+        its canonical bytes, and for a backward op the gradient slice's
+        form (top-k entries kept against the slice's size, or dense)."""
+        from repro_torch.core.cluster.codec import SparseGrad, wire_nbytes
+
+        self.tally["enc_down"] += wire_nbytes(out)
+        if not (isinstance(msg, tuple) and msg and msg[0] in ("bwd", "sbwd")):
+            return
+        g, enc = msg[1][2], out[1][2]
+        if isinstance(enc, SparseGrad):
+            self.tally["grad_sparse_slices"] += 1
+            self.tally["grad_sparse_elems"] += g.size
+            self.tally["grad_kept"] += enc.idx.size
+            self.tally["grad_sparse_bytes"] += wire_nbytes(enc)
+            frac = link_codec.grad_topk
+            want_kept = max(1, int(round(frac * g.size)))
+            if enc.idx.size != want_kept or wire_nbytes(enc) != 8 * want_kept + 8:
+                self.topk_faults.append([list(g.shape), int(enc.idx.size), want_kept,
+                                         wire_nbytes(enc)])
+        else:
+            self.tally["grad_dense_slices"] += 1
+            self.tally["grad_dense_elems"] += g.size
+            self.tally["grad_dense_bytes"] += wire_nbytes(enc)
+
     def _count(self, obj, way):
         for a in _arrays(obj):
             self.tally[f"arrays_{way}"] += 1
@@ -879,7 +962,8 @@ class WireLog:
     def step_end(self, cluster):
         tally, comm, t0 = self._mark
         rec = {k: n - tally.get(k, 0) for k, n in self.tally.items()}
-        rec.update(comm_mib=(cluster.comm_bytes - comm) / 2 ** 20,
+        rec.update(comm_bytes=cluster.comm_bytes - comm,
+                   comm_mib=(cluster.comm_bytes - comm) / 2 ** 20,
                    s=time.perf_counter() - t0, slave_ids=list(cluster.slave_ids))
         self.steps.append(rec)
 
@@ -927,7 +1011,31 @@ class WireLog:
 
             def _check_result(self, out):
                 log._count(out, "to_master")
+                log._raw(out, "up")
                 return super()._check_result(out)
+
+            def _link_codec(self):
+                link_codec = super()._link_codec()
+                encode_down = link_codec.encode_down
+
+                def observed(msg):
+                    out = encode_down(msg)
+                    log.encoded(link_codec, msg, out)
+                    return out
+
+                link_codec.encode_down = observed
+                return link_codec
+
+            def admit(self, *a, **kw):
+                t0 = time.perf_counter()
+                dev = super().admit(*a, **kw)
+                log.membership.append(["admit", dev, time.perf_counter() - t0])
+                return dev
+
+            def evict(self, device):
+                t0 = time.perf_counter()
+                super().evict(device)
+                log.membership.append(["evict", device, time.perf_counter() - t0])
 
             def reset_stats(self):
                 super().reset_stats()
@@ -2319,8 +2427,12 @@ def worst_leaves(history, ref_params) -> list:
 
 def check_left(phase, log, slaves):
     """Fails if a slave pid or one of the cluster's ring segments
-    outlived ``shutdown``.  What else appeared in ``/dev/shm`` meanwhile
-    (another program's segment, say) is recorded, not held."""
+    outlived ``shutdown``, or if a slave imported ``ml_dtypes``.  What
+    else appeared in ``/dev/shm`` meanwhile (another program's segment,
+    say) is recorded, not held."""
+    imported = [r["device"] for r in slaves if r["counts"] and r["counts"]["ml_dtypes"]]
+    if imported:
+        fail(f"{phase}: slave devices {imported} imported ml_dtypes")
     left = [r["pid"] for r in slaves if not r["gone"]]
     if left:
         fail(f"{phase}: slave pids left after shutdown: {left}")
@@ -2559,6 +2671,431 @@ def recover_phase(ks, dev, cfg, c1, c2, train_kw) -> tuple:
         "slaves": slaves, "slave_shard_launches": launches, "shutdown": log.shutdown_rec}
     emit(out)
     return out, launches, conv_path_shapes(ks, dev, fwd, bwd, "recover")
+
+
+def update_errs(cfg, batch, lr, dev, history) -> list:
+    """Each step's update (params after it less params before it)
+    against one float64 step's from the same params, per leaf, as
+    norm-relative errors: ``[{leaf: err}, ...]`` by step."""
+    from repro_torch.launch.hetero import train_inputs
+
+    start = train_inputs(cfg, batch, dev)[0]
+    out = []
+    for i, got in enumerate(history):
+        before = start if i == 0 else history[i - 1]
+        (_,), (want,) = float64_steps(cfg, batch, 1, lr, dev, start=before)
+        errs = {}
+        for l in want:
+            for n in want[l]:
+                b = before[l][n].double()
+                du, dw = got[l][n].double() - b, want[l][n] - b
+                errs[f"{l}.{n}"] = ((du - dw).norm() / dw.norm().clamp_min(1e-30)).item()
+        out.append(errs)
+    return out
+
+
+def wire_bytes(steps) -> dict:
+    """A run's bytes summed over its steps: the canonical bytes the
+    links counted (``comm``, encoded), the same messages as the master
+    held them (``raw``: each op before its link encoded it, each result
+    after its link decoded it), their float-array part, and the
+    gradient slices' forms."""
+    tot = collections.Counter()
+    for st in steps:
+        tot.update({k: v for k, v in st.items() if isinstance(v, int)})
+    raw = tot["raw_down"] + tot["raw_up"]
+    return {"comm": tot["comm_bytes"], "raw": raw,
+            "float": tot["float_down"] + tot["float_up"],
+            "enc_down": tot["enc_down"], "enc_up": tot["comm_bytes"] - tot["enc_down"],
+            "raw_down": tot["raw_down"], "raw_up": tot["raw_up"],
+            "ratio": tot["comm_bytes"] / raw,
+            **{k: tot[k] for k in ("grad_sparse_slices", "grad_sparse_elems", "grad_kept",
+                                   "grad_sparse_bytes", "grad_dense_slices",
+                                   "grad_dense_elems", "grad_dense_bytes")}}
+
+
+def check_codec_bytes(spec, b, faults) -> dict:
+    """Holds one codec run's encoded-to-raw ratio of the same messages
+    (``wire_bytes``) to what the spec ships; returns the bound held."""
+    if spec == "int8":
+        bound = 1 / 3.5  # the reference's: bytes32 / bytes8 > 3.5
+        ok = b["ratio"] < bound
+    elif spec == "bf16":
+        # float arrays at 2 of their 4 bytes; every 8-byte scalar token
+        # and any other array crosses whole
+        bound = (b["raw"] - b["float"] / 2) / b["raw"]
+        ok = b["comm"] <= b["raw"] - b["float"] // 2
+    else:
+        # top-k: each sparse slice at most 8 B a kept entry (an int32
+        # index and an fp32 value) plus its shape token, so 0.4 B an
+        # element plus 12 B; a slice too small to pay ships dense; the
+        # (dX, dW) results come back in fp32 (the grads stage is fp32)
+        frac = float(spec.split(":")[1])
+        sparse_bound = 8 * frac * b["grad_sparse_elems"] + 12 * b["grad_sparse_slices"]
+        bound = {"sparse_bytes": sparse_bound, "up": b["raw_up"]}
+        ok = (b["grad_sparse_bytes"] <= sparse_bound and not faults
+              and b["grad_dense_bytes"] == 4 * b["grad_dense_elems"]
+              and b["grad_sparse_slices"] > 0 and b["enc_up"] == b["raw_up"]
+              and b["ratio"] < 1.0)
+    if not ok:
+        fail(f"codec {spec}: the bytes of the same messages {b} (top-k slices not "
+             f"of their size: {faults}) against {bound}")
+    return bound
+
+
+def codec_phase(ks, dev, cfg, c1, c2, train_kw) -> tuple:
+    """Phase 20: the wire codec between the master and a ``cuda`` and a
+    ``numpy`` slave process over shm.  Part 1: ``CODEC_SPECS`` at full
+    width, 2 training steps each, the encoded-to-raw bytes of the same
+    messages held to what each spec ships; part 2: the reference codec
+    accuracy test's own workload through a ``cuda`` slave process, held
+    at its bounds.  Returns (its JSON records, the cuda slaves' shard
+    launches by run, K1-K3 against their plain versions at every shape
+    the master and the slaves ran)."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.cluster.transport import ShmTransport
+    from repro_torch.launch.hetero import run_hetero
+
+    backends = WIRE_BACKENDS
+    kw = dict(train_kw, steps=CODEC_STEPS)
+    recs, launches = [], {}
+    fwd, bwd = collections.Counter(), collections.Counter()
+    (f64_loss,), _ = float64_steps(cfg, kw["batch"], 1, kw["lr"], dev)
+    for spec in CODEC_SPECS:
+        with WireLog(f"codec_{spec.replace('=', '_').replace(':', '_')}",
+                     ring_bytes=ShmTransport.DEFAULT_RING_BYTES) as log, \
+                ShapeLog(get_backend("cuda")) as master_log:
+            reset_counts(ks)
+            t_run = time.perf_counter()
+            rec, hist = run_hetero([1.0, 1.0, 1.0], backends, transport="shm",
+                                   wire_codec=spec, **kw)
+            run_s = time.perf_counter() - t_run
+            master_counts = read_counts(ks, CONV_KINDS)
+        if not np.isfinite(rec["losses"]).all():
+            fail(f"codec {spec}: non-finite losses {rec['losses']}")
+        loss_err = abs(rec["losses"][0] - f64_loss)
+        if spec.startswith("grads=topk") and loss_err > LOSS_ATOL:
+            # the forward crosses the wire uncompressed: the loss is exact
+            fail(f"codec {spec}: step-1 loss err {loss_err} vs float64 > {LOSS_ATOL}")
+        b = wire_bytes(log.steps)
+        bound = check_codec_bytes(spec, b, log.topk_faults)
+        slaves = log.slaves()
+        launches[spec] = check_slave_launches(f"codec {spec}", slaves, training=True)
+        f, bw = run_shapes(f"codec {spec}", master_log, master_counts, slaves)
+        fwd.update(f)
+        bwd.update(bw)
+        check_left(f"codec {spec}", log, slaves)
+        recs.append({
+            "phase": "codec", "run": spec, "net": f"cifar_cnn_{c1}_{c2}",
+            "backends": backends, "transport": "shm",
+            **{k: kw[k] for k in ("batch", "microbatches", "steps", "lr", "partition")},
+            "losses": rec["losses"], "f64_step1_loss": f64_loss, "step1_loss_err": loss_err,
+            "loss_atol_held": spec.startswith("grads=topk"),
+            "update_rel_err_by_step": update_errs(cfg, kw["batch"], kw["lr"], dev, hist),
+            "held": "bytes of the same messages; top-k: the step-1 loss; "
+                    "update errors recorded, not held",
+            "bytes": b, "bytes_bound": bound, "s_per_step": rec["wall_s"] / kw["steps"],
+            "run_s": run_s, "probe_s": rec["probe_s"], "shares": rec["shares"],
+            "kernels_per_device_after": rec["kernels_per_device"],
+            "steps_wire": log.steps, "master_launches": master_counts,
+            "slaves": slaves, "slave_shard_launches": launches[spec],
+            "shutdown": log.shutdown_rec})
+        emit(recs[-1])
+
+    # part 2: tests/test_codec_accuracy.py's workload, a cuda master and a
+    # cuda slave process over shm, probe times pinned as the test pins them
+    rec, acc_launches, f, bw = codec_accuracy(ks, dev)
+    launches.update(acc_launches)
+    fwd.update(f)
+    bwd.update(bw)
+    recs.append(rec)
+    emit(rec)
+    return recs, launches, conv_path_shapes(ks, dev, fwd, bwd, "codec")
+
+
+def _relu_between():
+    def between(y):
+        mask = (y > 0).astype(np.float32)
+        return np.maximum(y, 0.0), lambda gz: gz * mask
+
+    return between
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+def codec_accuracy(ks, dev) -> tuple:
+    """The codec accuracy test's two cases on the card: uniform(-1, 1)
+    images (8, 32, 32, 3), kernels (3, 3, 3, 8) and (3, 3, 8, 12) at a 0.3
+    scale; one train chain under 0.5 ||y||^2 over the fp32 wire and over
+    int8 (dW within 1e-2, dx within 5e-2, bytes more than 3.5x fewer),
+    then 8 SGD steps at lr 2 on 0.5 mean(y^2) over fp32 and over
+    top-k 0.05 (a loss drop above 0.7x fp32's, fewer bytes).  One fp32
+    cluster is both baselines.  Returns (its record, the cuda slaves'
+    shard launches, the fwd and bwd shapes of every process)."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.cluster.cluster import HeteroCluster
+    from repro_torch.core.cluster.transport import ShmTransport
+
+    def data(seed):
+        rng = np.random.default_rng(seed)
+        x = rng.uniform(-1.0, 1.0, size=(8, 32, 32, 3)).astype(np.float32)
+        w1 = (0.3 * rng.uniform(-1.0, 1.0, size=(3, 3, 3, 8))).astype(np.float32)
+        w2 = (0.3 * rng.uniform(-1.0, 1.0, size=(3, 3, 8, 12))).astype(np.float32)
+        return x, w1, w2
+
+    def train_step(c, x, w1, w2):
+        c.reset_stats()
+        res = c.conv_train_chain(x, [w1, w2], [_relu_between(), None],
+                                 lambda z, i: (None, z))
+        return res, c.comm_bytes
+
+    def sgd_losses(c, x, w1, w2, steps=8, lr=2.0):
+        losses, total_bytes = [], 0
+        for _ in range(steps):
+            ys = []
+
+            def head(z, i):
+                z = np.asarray(z, np.float32)
+                ys.append(z)
+                return None, z / z.size
+
+            c.reset_stats()
+            res = c.conv_train_chain(x, [w1, w2], [_relu_between(), None], head)
+            total_bytes += c.comm_bytes
+            y = np.concatenate(ys, axis=0)
+            losses.append(0.5 * float(np.mean(y * y)))
+            w1 = w1 - lr * res.dw[0]
+            w2 = w2 - lr * res.dw[1]
+        return losses, total_bytes
+
+    specs = {"fp32": None, "int8": "int8", "topk": "grads=topk:0.05"}
+    logs = {name: WireLog(f"codec_accuracy_{name}", ring_bytes=ShmTransport.DEFAULT_RING_BYTES)
+            for name in specs}
+    with contextlib.ExitStack() as stack, ShapeLog(get_backend("cuda")) as master_log:
+        for log in logs.values():
+            stack.enter_context(log)
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(specs)) as pool:  # the three spawns overlap
+            made = {name: pool.submit(logs[name].subclass(HeteroCluster), [1.0, 1.0],
+                                      WIRE_BACKENDS[:2], transport="shm", wire_codec=spec)
+                    for name, spec in specs.items()}
+            clusters = {name: fut.result() for name, fut in made.items()}
+        up_s = time.perf_counter() - t0
+        try:
+            for c in clusters.values():
+                c.probe_times = [1.0, 1.0]
+            x, w1, w2 = data(0)
+            (ref, bytes32), (got, bytes8) = (train_step(clusters[n], x, w1, w2)
+                                             for n in ("fp32", "int8"))
+            x, w1, w2 = data(1)
+            (ref_losses, ref_bytes), (tk_losses, tk_bytes) = (
+                sgd_losses(clusters[n], x, w1, w2) for n in ("fp32", "topk"))
+        finally:
+            for c in clusters.values():
+                c.shutdown()
+        master_counts = read_counts(ks, CONV_KINDS)
+    errs = {"dw0": _rel(got.dw[0], ref.dw[0]), "dw1": _rel(got.dw[1], ref.dw[1]),
+            "dx": _rel(got.dx, ref.dx)}
+    ref_drop, tk_drop = ref_losses[0] - ref_losses[-1], tk_losses[0] - tk_losses[-1]
+    if not (errs["dw0"] <= 1e-2 and errs["dw1"] <= 1e-2 and errs["dx"] <= 5e-2
+            and bytes32 / bytes8 > 3.5):
+        fail(f"codec accuracy: int8 rel errs {errs} (dW <= 1e-2, dx <= 5e-2), "
+             f"bytes fp32/int8 {bytes32 / bytes8} (> 3.5)")
+    if not (ref_losses[-1] < ref_losses[0] and tk_losses[-1] < tk_losses[0]
+            and tk_drop > 0.7 * ref_drop and tk_bytes < ref_bytes):
+        fail(f"codec accuracy: top-k losses {tk_losses} against fp32 {ref_losses} "
+             f"(drop > 0.7x fp32's), bytes {tk_bytes} against {ref_bytes}")
+    slaves = [r for log in logs.values() for r in log.slaves()]
+    launches = check_slave_launches("codec accuracy", slaves, training=True)
+    fwd, bwd = run_shapes("codec accuracy", master_log, master_counts, slaves)
+    for name, log in logs.items():
+        check_left(f"codec accuracy {name}", log, [r for r in log.slaves()])
+    rec = {"phase": "codec", "run": "accuracy", "workload": "tests/test_codec_accuracy.py",
+           "backends": WIRE_BACKENDS[:2], "transport": "shm", "probe_times": [1.0, 1.0],
+           "int8_rel_err": errs, "bytes_fp32": bytes32, "bytes_int8": bytes8,
+           "bytes_ratio": bytes32 / bytes8,
+           "bounds": {"dw": 1e-2, "dx": 5e-2, "bytes_ratio": 3.5, "topk_drop": 0.7},
+           "fp32_losses": ref_losses, "topk_losses": tk_losses,
+           "topk_drop_over_fp32": tk_drop / ref_drop, "fp32_bytes_8_steps": ref_bytes,
+           "topk_bytes_8_steps": tk_bytes, "clusters_up_s": up_s,
+           "master_launches": master_counts, "slaves": slaves,
+           "slave_shard_launches": launches,
+           "shutdown": {name: log.shutdown_rec for name, log in logs.items()}}
+    return rec, {"accuracy": launches}, fwd, bwd
+
+
+def admission_phase(ks, dev, c1, c2, image, max_batch) -> tuple:
+    """Phase 21: ``ClusterServer``'s admission, deadlines, SlaveLost and
+    ``AutoScaler`` over tcp, with a ``cuda`` master, a ``cuda`` and a
+    ``numpy`` slave process, serving the headline network with
+    ``run_serve``'s weights.  Returns (its JSON record, the cuda slaves'
+    shard launches, K1 against its plain version at every shape the
+    master and the slaves ran)."""
+    import repro_torch.launch.hetero as hetero
+    from repro_torch.core.backends import get_backend
+    from repro_torch.launch.hetero import relu_pool, serve_inputs
+    from repro_torch.serve.server import AutoScaler, ClusterServer
+
+    weights, fc, images = serve_inputs(SEED, c1, c2, image, ADMISSION_IMAGES)
+
+    def head(z):
+        return z.reshape(z.shape[0], -1) @ fc
+
+    def burst(cluster, xs, *, deadline_s=None, start_after=0.0, **server_kw):
+        """Submits ``xs`` (each with ``deadline_s``, or None) before the
+        server starts, then starts it and waits for every response."""
+        server = ClusterServer(cluster, weights, head=head, max_batch=max_batch,
+                               **{"between": [relu_pool, relu_pool], **server_kw})
+        futs = [server.submit(x, deadline_s=d) for x, d in zip(xs, deadline_s or [None] * len(xs))]
+        time.sleep(start_after)
+        t0 = time.perf_counter()
+        with server:
+            resps = [f.result(timeout=600.0) for f in futs]
+        wall = time.perf_counter() - t0
+        st = server.stats()
+        statuses = [r.status for r in resps]
+        n_ok = statuses.count("ok")
+        return resps, {"requests": len(xs), "statuses": dict(collections.Counter(statuses)),
+                       "wall_s": wall, "ok_per_s": n_ok / wall, "p50_ms": st["p50_ms"],
+                       "p99_ms": st["p99_ms"], "stats": st,
+                       "retries": sum(r.retries for r in resps)}
+
+    def f64_err(resps, label):
+        """Max abs error of ``resps`` (for ``images[:len(resps)]``, in
+        order) against the float64 chain; fails above ``SERVE_ATOL``."""
+        err = serve_f64_err(ks, dev, [r.output for r in resps], c1, c2, image,
+                            ADMISSION_IMAGES, n_check=len(resps))
+        if err > SERVE_ATOL:
+            fail(f"admission {label}: max abs err {err} vs the float64 chain > {SERVE_ATOL}")
+        return err
+
+    def slave_fwd(log):
+        """The cuda slave processes' forward shapes so far, by device."""
+        return {r["device"]: collections.Counter({tuple(k[:-1]): k[-1] for k in r["fwd_by_shape"]})
+                for r in log.slaves() if r["backend"] == "cuda"}
+
+    out = {"phase": "admission", "net": f"cifar_cnn_{c1}_{c2}", "backends": WIRE_BACKENDS,
+           "transport": "tcp", "max_batch": max_batch, "heartbeat_s": RECOVER_HEARTBEAT_S}
+    with WireLog("admission") as log, ShapeLog(get_backend("cuda")) as master_log:
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        cluster = hetero.HeteroCluster([1.0, 1.0, 1.0], WIRE_BACKENDS, transport="tcp",
+                                       pipeline=True, microbatches=4, partition="kernel",
+                                       heartbeat_s=RECOVER_HEARTBEAT_S)
+        try:
+            probe = cluster.probe(image_size=image, in_channels=3, kernel_size=5,
+                                  num_kernels=max(8, c1), batch=max_batch)
+            out.update(up_s=time.perf_counter() - t0, probe_s=[float(t) for t in probe],
+                       kernels_per_device={"c1": cluster.shares_for(c1).tolist(),
+                                           "c2": cluster.shares_for(c2).tolist()})
+
+            # (a) rejection: a burst of 16 into a queue of 8, before start()
+            resps, rec = burst(cluster, images[:16], max_queue=8)
+            rejected = [i for i, r in enumerate(resps) if r.status == "rejected"]
+            if rejected != list(range(8, 16)) or rec["stats"]["rejected"] != 8 or \
+                    rec["statuses"].get("ok") != 8:
+                fail(f"admission rejection: statuses {rec['statuses']}, rejected {rejected}, "
+                     f"stats {rec['stats']}")
+            if any("queue full" not in resps[i].detail for i in rejected):
+                fail("admission rejection: a rejection without 'queue full'")
+            rec["max_abs_err_vs_f64_chain"] = f64_err(resps[:8], "rejection")
+            out["rejection"] = rec
+
+            # (b) deadlines: 1 ms deadlines queued before start(), among live
+            # requests; the expired ones are never computed
+            m_before, s_before = collections.Counter(master_log.fwd), slave_fwd(log)
+            launches_before = read_counts(ks, ("conv2d_fwd",))["conv2d_fwd"]
+            xs = [images[i // 2] if i % 2 == 0 else images[8 + i // 2] for i in range(16)]
+            dl = [None if i % 2 == 0 else ADMISSION_DEADLINE_S for i in range(16)]
+            resps, rec = burst(cluster, xs, deadline_s=dl, start_after=0.05)
+            live = [r for r, d in zip(resps, dl) if d is None]
+            dead = [r for r, d in zip(resps, dl) if d is not None]
+            if any(r.status != "expired" or r.output is not None for r in dead) or \
+                    any(r.status != "ok" for r in live):
+                fail(f"admission deadlines: statuses {[r.status for r in resps]}")
+            m_fwd = master_log.fwd - m_before
+            s_fwd = {d: c - s_before.get(d, collections.Counter())
+                     for d, c in slave_fwd(log).items()}
+            served = {"master": m_fwd, **{f"cuda slave {d}": c for d, c in s_fwd.items()}}
+            images_by_layer = {who: {cin: sum(k[0] * n for k, n in c.items() if k[3] == cin)
+                                     for cin in (3, c1)} for who, c in served.items()}
+            n_launched = read_counts(ks, ("conv2d_fwd",))["conv2d_fwd"] - launches_before
+            if n_launched != nonempty(m_fwd) or \
+                    any(n not in (0, len(live)) for v in images_by_layer.values()
+                        for n in v.values()) or \
+                    set(images_by_layer["master"].values()) != {len(live)}:
+                fail(f"admission deadlines: the images each process convolved by layer "
+                     f"{images_by_layer} (want {len(live)} live requests), master K1 "
+                     f"launches {n_launched} for {nonempty(m_fwd)} shards")
+            rec.update(expired=len(dead), live=len(live), deadline_s=ADMISSION_DEADLINE_S,
+                       images_by_layer={w: {str(k): n for k, n in v.items()}
+                                        for w, v in images_by_layer.items()},
+                       master_k1_launches=n_launched,
+                       max_abs_err_vs_f64_chain=f64_err(live, "deadlines"))
+            out["deadlines"] = rec
+
+            # (c) SlaveLost: SIGKILL the cuda slave from the first between
+            # stage of the first slab
+            pos = cluster.backends.index(WIRE_BACKENDS[1], 1) - 1
+            victim, victim_dev = cluster.procs[pos], cluster.slave_ids[pos]
+            killed = {}
+
+            def kill_then_pool(y):
+                if not killed:
+                    killed["t"] = time.monotonic()
+                    victim.kill()
+                return relu_pool(y)
+
+            resps, rec = burst(cluster, images[:8], between=[kill_then_pool, relu_pool])
+            failures = list(cluster.failures)
+            if rec["statuses"] != {"ok": 8} or rec["retries"] < 1 or len(failures) != 1 or \
+                    failures[0]["device"] != victim_dev:
+                fail(f"admission slave_lost: statuses {rec['statuses']}, retries "
+                     f"{rec['retries']}, failures {failures}")
+            rec.update(victim_device=victim_dev, victim_returncode=victim.wait(timeout=30),
+                       detect_s=failures[0]["t_detected"] - killed["t"],
+                       failure={k: v for k, v in failures[0].items() if k != "t_detected"},
+                       max_abs_err_vs_f64_chain=f64_err(resps, "slave_lost"))
+            out["slave_lost"] = rec
+
+            # (d) AutoScaler on the survivors: a burst of 12 admits a cuda
+            # slave process, the drained queue evicts it
+            scaler = AutoScaler(cluster, scale_up_depth=6, scale_down_depth=0, min_slaves=1,
+                                max_slaves=2, cooldown_s=0.0,
+                                admit_kwargs={"backend": WIRE_BACKENDS[1]})
+            resps, rec = burst(cluster, images[:12], max_queue=16, autoscaler=scaler)
+            deadline = time.monotonic() + 60.0
+            while cluster.n_slaves > 1 and time.monotonic() < deadline:
+                time.sleep(0.01)  # idle loop iterations evict to min
+            actions = [e[1] for e in scaler.events]
+            if rec["statuses"] != {"ok": 12} or actions != ["admit", "evict"] or \
+                    cluster.n_slaves != 1:
+                fail(f"admission autoscaler: statuses {rec['statuses']}, events "
+                     f"{scaler.events}, {cluster.n_slaves} slaves after the drain")
+            admitted = scaler.events[0][2]
+            rec.update(events=[[e[1], e[2]] for e in scaler.events],
+                       membership_s=log.membership,
+                       max_abs_err_vs_f64_chain=f64_err(resps, "autoscaler"))
+            out["autoscaler"] = rec
+        finally:
+            cluster.shutdown()
+        master_counts = read_counts(ks, CONV_KINDS)
+    slaves = log.slaves()
+    adm = next((r for r in slaves if r["device"] == admitted), None)
+    if adm is None or adm["backend"] != WIRE_BACKENDS[1] or adm["counts"] is None:
+        fail(f"admission autoscaler: the admitted cuda slave did not run and leave: {adm}")
+    launches = check_slave_launches("admission", slaves, training=False)
+    fwd, bwd = run_shapes("admission", master_log, master_counts, slaves)
+    if bwd:
+        fail(f"admission: backward shards while serving: {dict(bwd)}")
+    check_left("admission", log, slaves)
+    out.update(master_launches=master_counts, slaves=slaves,
+               slave_shard_launches=launches, shutdown=log.shutdown_rec)
+    emit(out)
+    return out, launches, conv_path_shapes(ks, dev, fwd, bwd, "admission")
 
 
 def main() -> int:
@@ -3064,10 +3601,16 @@ def main() -> int:
         {"s_per_step": trec["wall_s"] / steps}, serve_rec)
     _, slave_launches["recover"], recover_recs = recover_phase(ks, dev, cfg, c1, c2,
                                                                train_kw)
-    process_recs = {kind: {"wire": wire_recs[kind], "recover": recover_recs[kind]}
+    # -- 20-21. the wire codec, and ClusterServer's admission -----------------
+    _, codec_launches, codec_recs = codec_phase(ks, dev, cfg, c1, c2, train_kw)
+    slave_launches.update({f"codec {run}": n for run, n in codec_launches.items()})
+    _, slave_launches["admission"], admission_recs = admission_phase(ks, dev, c1, c2, image,
+                                                                     max_batch)
+    process_recs = {kind: {"wire": wire_recs[kind], "recover": recover_recs[kind],
+                           "codec": codec_recs[kind], "admission": admission_recs[kind]}
                     for kind in CONV_KINDS}
 
-    # -- 20. the rest of the model zoo at full width -------------------------
+    # -- 22. the rest of the model zoo at full width -------------------------
     zoo_runs = {}
     for arch, zb, zprompt, znew, k4, check_layers in ZOO:
         emit({"phase": "lm_zoo", "arch": arch, "event": "start",
@@ -3082,7 +3625,7 @@ def main() -> int:
                                       z_trace)
         torch.cuda.empty_cache()
 
-    # -- 21-24. the mesh layer on the card's (1, 1) mesh ---------------------
+    # -- 23-26. the mesh layer on the card's (1, 1) mesh ---------------------
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh("cuda")
@@ -3097,7 +3640,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 25. the dry run at 256 / 512 GPUs and on the card's mesh -----------
+    # -- 27. the dry run at 256 / 512 GPUs and on the card's mesh -----------
     for r in dryrun_records(mt_rec):
         emit(r)
 
@@ -3141,6 +3684,8 @@ def main() -> int:
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                   for m in sys.modules):
         fail("the JAX package or jax was imported")
+    if "ml_dtypes" in sys.modules:
+        fail("ml_dtypes was imported (the bf16 wire stage is numpy only)")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

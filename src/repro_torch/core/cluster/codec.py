@@ -9,7 +9,10 @@ stages:
 - ``fp32`` — no narrowing, but float64 arrays are still normalized to
   float32 so the uncompressed wire is comparable with every codec
   (nothing in the protocol computes in double precision).
-- ``fp16`` / ``bf16`` — the 2-byte narrowing codecs (PR 3).
+- ``fp16`` / ``bf16`` — the 2-byte narrowing codecs.  numpy has no
+  bfloat16, so ``bf16`` ships each value's upper 16 bits, rounded to
+  nearest even, as ``uint16`` (``Bf16Array``): numpy only, the same bits
+  ``ml_dtypes.bfloat16`` would give, on every host.
 - ``int8`` — symmetric per-tensor absmax quantization: a tensor ships
   as its int8 values plus one float scale (``QuantArray``), 4x fewer
   bytes than fp32.
@@ -60,41 +63,39 @@ _DOWN_SLOTS = {
 _FLOATS = (np.float32, np.float64)
 
 
-def resolve_wire_dtype(name: Optional[str]) -> Optional[np.dtype]:
-    """Map a wire-dtype name to the numpy dtype arrays are encoded to on
-    the wire; ``None``/``"fp32"`` means no narrowing (the seed wire)."""
+#: the bf16 stage's marker (numpy has no bfloat16 dtype): a stage is
+#: ``None`` (fp32), a numpy dtype (fp16), ``BF16`` or ``"int8"``
+BF16 = "bf16"
+
+
+def resolve_wire_dtype(name: Optional[str]):
+    """Map a wire-dtype name to what arrays are encoded to on the wire:
+    ``None``/``"fp32"`` means no narrowing (the seed wire), ``"fp16"``
+    the numpy float16 dtype and ``"bf16"`` the ``BF16`` marker."""
     if name is None or name in ("fp32", "float32"):
         return None
     if name in ("fp16", "float16"):
         return np.dtype(np.float16)
     if name in ("bf16", "bfloat16"):
-        try:
-            import ml_dtypes
-        except ImportError as e:  # pragma: no cover - ml_dtypes is optional
-            raise ValueError(
-                "wire_dtype='bf16' needs the ml_dtypes package"
-            ) from e
-        return np.dtype(ml_dtypes.bfloat16)
+        return BF16
     raise ValueError(
         f"unknown wire_dtype {name!r}; use None/'fp32', 'fp16' or 'bf16'"
     )
 
 
-def wire_dtype_name(dtype: Optional[np.dtype]) -> Optional[str]:
+def wire_dtype_name(dtype) -> Optional[str]:
     """Inverse of ``resolve_wire_dtype`` — for shipping the codec choice
     to a slave subprocess on its command line."""
-    if dtype is None:
-        return None
-    if dtype == np.dtype(np.float16):
-        return "fp16"
-    return "bf16"
+    if dtype is None or isinstance(dtype, str):
+        return dtype
+    return "fp16"
 
 
-def encode(obj, wire_dtype: np.dtype):
+def encode(obj, wire_dtype):
     """Compact float arrays to the wire dtype (recursive, legacy
     single-stage API — ``WireCodec`` is the grammar-aware stack)."""
     if isinstance(obj, np.ndarray) and obj.dtype in _FLOATS:
-        return obj.astype(wire_dtype)
+        return _to_bf16(obj) if wire_dtype == BF16 else obj.astype(wire_dtype)
     if isinstance(obj, tuple):
         return tuple(encode(o, wire_dtype) for o in obj)
     if isinstance(obj, list):
@@ -104,9 +105,11 @@ def encode(obj, wire_dtype: np.dtype):
     return obj
 
 
-def decode(obj, wire_dtype: np.dtype):
+def decode(obj, wire_dtype):
     """Widen wire-dtype arrays back to float32 at the read side (legacy
     single-stage API — ``WireCodec.decode`` handles the full stack)."""
+    if isinstance(obj, Bf16Array):
+        return _from_bf16(obj)
     if isinstance(obj, np.ndarray) and obj.dtype == wire_dtype:
         return obj.astype(np.float32)
     if isinstance(obj, tuple):
@@ -129,6 +132,18 @@ class QuantArray:
     def __init__(self, q: np.ndarray, scale: float):
         self.q = q
         self.scale = scale
+
+
+class Bf16Array:
+    """A bfloat16 tensor on the wire: each float32 value's upper 16
+    bits, rounded to nearest even, as ``uint16`` ``bits`` (numpy has no
+    bfloat16).  Decodes to ``bits << 16`` viewed as float32; costs
+    ``bits.nbytes`` canonical bytes, 2 an element."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
 
 
 class SparseGrad:
@@ -166,7 +181,7 @@ class WeightRef:
 def map_arrays(obj, fn, leaf=np.ndarray):
     """Rebuild ``obj`` with ``fn`` applied to every ``leaf`` instance,
     descending through tuples/lists/dicts AND the codec's own marker
-    classes (``QuantArray``/``SparseGrad``/``WeightRef``) — the one
+    classes (``QuantArray``/``Bf16Array``/``SparseGrad``/``WeightRef``) — the one
     traversal both the codec stages and the shm segment packer use."""
     if isinstance(obj, leaf):
         return fn(obj)
@@ -178,6 +193,8 @@ def map_arrays(obj, fn, leaf=np.ndarray):
         return {k: map_arrays(v, fn, leaf) for k, v in obj.items()}
     if isinstance(obj, QuantArray):
         return QuantArray(map_arrays(obj.q, fn, leaf), obj.scale)
+    if isinstance(obj, Bf16Array):
+        return Bf16Array(map_arrays(obj.bits, fn, leaf))
     if isinstance(obj, SparseGrad):
         return SparseGrad(
             map_arrays(obj.idx, fn, leaf),
@@ -206,6 +223,8 @@ def wire_nbytes(obj) -> int:
         )
     if isinstance(obj, QuantArray):
         return obj.q.nbytes + 8  # values + one scale scalar
+    if isinstance(obj, Bf16Array):
+        return obj.bits.nbytes
     if isinstance(obj, SparseGrad):
         return obj.idx.nbytes + obj.vals.nbytes + 8  # + shape token
     if isinstance(obj, WeightRef):
@@ -228,6 +247,25 @@ def _dequant_int8(qa: QuantArray) -> np.ndarray:
     return qa.q.astype(np.float32) * np.float32(qa.scale)
 
 
+def _to_bf16(a: np.ndarray) -> Bf16Array:
+    """Round a float array to bfloat16 bits, to nearest even: ties go to
+    the even upper half, values past bf16's largest finite round to
+    ±inf, ±inf stay, subnormals keep their bits, and every NaN becomes
+    the quiet NaN of its sign (``ml_dtypes.bfloat16``'s bits, all)."""
+    f = np.asarray(a, np.float32)
+    u = f.view(np.uint32)
+    # uint32 wraps only for NaNs above 0xFFFF7FFF; np.where replaces them
+    rounded = (u + (np.uint32(0x7FFF) + ((u >> 16) & 1))) >> 16
+    nan = np.where(u >> 31, np.uint32(0xFFC0), np.uint32(0x7FC0))
+    bits = np.where(np.isnan(f), nan, rounded)
+    return Bf16Array(bits.astype(np.uint16))
+
+
+def _from_bf16(ba: Bf16Array) -> np.ndarray:
+    """Decode ``Bf16Array`` back to float32 (exact: a widening)."""
+    return (ba.bits.astype(np.uint32) << 16).view(np.float32)
+
+
 def _sparsify_topk(a: np.ndarray, frac: float) -> Optional[SparseGrad]:
     """Keep the largest-|.|  ``frac`` of ``a``'s entries; ``None`` when
     the tensor is too small for sparsification to pay (ship dense)."""
@@ -248,8 +286,8 @@ def _densify(sp: SparseGrad) -> np.ndarray:
 
 
 def _parse_stage(name: str):
-    """One stage spec token -> ``None`` (fp32), a narrow np.dtype, or
-    the ``"int8"`` marker.  ``topk`` is handled by the spec parser (it
+    """One stage spec token -> ``None`` (fp32), np.float16, or the
+    ``BF16`` / ``"int8"`` marker.  ``topk`` is handled by the spec parser (it
     is only legal for the grads class)."""
     name = name.strip().lower()
     if name in ("", "fp32", "float32", "none"):
@@ -279,6 +317,8 @@ def _stage_itemsize(stage) -> float:
         return 4.0
     if stage == "int8":
         return 1.0
+    if stage == BF16:
+        return 2.0
     return float(stage.itemsize)
 
 
@@ -394,6 +434,8 @@ class WireCodec:
             return a
         if stage == "int8":
             return _quant_int8(a)
+        if stage == BF16:
+            return _to_bf16(a)
         if stage is None:
             return a.astype(np.float32) if a.dtype == np.float64 else a
         return a.astype(stage)
@@ -479,6 +521,8 @@ class WireCodec:
         driven, so one decoder serves both directions."""
         if isinstance(obj, QuantArray):
             return _dequant_int8(obj)
+        if isinstance(obj, Bf16Array):
+            return _from_bf16(obj)
         if isinstance(obj, SparseGrad):
             return _densify(obj)
         if isinstance(obj, WeightRef):

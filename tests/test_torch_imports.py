@@ -38,6 +38,15 @@ def test_module_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_no_port_module_imports_ml_dtypes():
+    """numpy has no bfloat16, and the machine with the card has no
+    ``ml_dtypes``: the port's bf16 wire stage is numpy only, and no
+    module of the port (nor chip_smoke.py) imports ``ml_dtypes``."""
+    bad = {str(p.relative_to(ROOT)): m for p in FILES for m in _imported_modules(p)
+           if m.split(".")[0] == "ml_dtypes"}
+    assert not bad, bad
+
+
 def test_forbidden_rule_tells_the_packages_apart():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.backends")
     assert _forbidden("repro") and not _forbidden("repro_torch.core")
