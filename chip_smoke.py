@@ -37,7 +37,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    in isolation;
 7. train — the port's ``run_hetero(train_pipeline=True)`` on the same
    network at full width over ``cuda,cuda,numpy``: batch 32, 4
-   microbatches, 3 steps, inside a profiler trace.  Every loss finite;
+   microbatches, 2 steps, inside a profiler trace.  Every loss finite;
    the first step's loss and updated params equal one step taken from
    the same params and batch on one device in float64 (``cnn_loss`` with
    ``conv2d_ref``, autograd, SGD) to 1e-5 and 1e-4 (the later steps'
@@ -135,7 +135,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 18. wire — the flat cluster's slave processes: phase 7's network and
    backends with device 1 a ``cuda`` slave process (its own CUDA
    context, the kernel libraries loaded from the build directory) and
-   device 2 a ``numpy`` one.  Phase 7's training (3 steps) over the shm
+   device 2 a ``numpy`` one.  Phase 7's training (2 steps) over the shm
    rings, then phase 5's 16 requests over tcp, each through
    ``run_hetero`` / ``run_serve`` with the cluster built as
    ``WireLog``'s ``HeteroCluster`` subclass: its ``_slave_cmd`` runs the
@@ -197,7 +197,33 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    ``cuda`` slave process for a burst of 12 and evicts it when the queue
    drains, its launches equal to its shards.  req/s, p50 and p99 and
    the status counts of each; no pid left;
-22. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
+22. axes — the flat cluster's other partition axes: phase 7's network,
+   backends, batch, microbatches and lr, through ``run_hetero`` and
+   ``run_serve``.  (a) In process, in one profiler trace: 2 training
+   steps and 8 requests under ``spatial`` (height strips with halos)
+   and under ``batch`` (sample slices, each member's dW summed); every
+   request ok, 4 held against the float64 chain; K1, K2 and K3 each
+   launched, each wrapper's count equal to the trace's and to the
+   non-empty ``cuda`` shards (and probe launches) that ``ShardLog``
+   counted; the strips' image-rows computed (with the halo, padded to
+   ``strip_h + kh - 1``) against kept.  (b) Device 1, a ``cuda`` device,
+   its probe time times ``AXES_ZERO_SHARE``: Eq. 1 leaves it no strip
+   row, then no sample; it is sent only empty shards, and the launches
+   still equal the non-empty ``cuda`` shards.  (c) ``auto``, ``kernel``,
+   ``spatial`` and ``batch`` on emulated 1000 Mbps links, 2 steps each:
+   s/step side by side, and each of ``auto``'s picks (``ResolveLog``:
+   layer, op, the predictor's seconds) equal to the axis the predictor
+   ranks first; the same decisions resolved again on 25 Mbps links from
+   ``resolve_mode`` alone.  (d) ``spatial`` and ``batch`` over shm with
+   device 1 a ``cuda`` slave process, 2 steps each: strips and halos
+   cross the rings, the slave's launches equal its shards, no pid or
+   segment is left.  (e) K1-K3 at every shape (a) gave them, with the
+   ``cuda`` backend's copies of a call at each (K1: x, w up and y back;
+   K2: x, w, g up and dX, dW back), and each run's copy ms and weight
+   MiB sent to the card.  Step 1 of every run within 1e-5 / 1e-4 of
+   phase 7's float64 step, each later step of one float64 step from the
+   run's own params;
+23. lm_zoo — phases 12-14 for each configuration of ``ZOO`` at full
    width in its own bf16, every earlier phase's tensors and the
    allocator's cache freed first: moonshot-v1-16b-a3b (48 layers, 64
    experts top-6, 56.1 GB of weights; K4 48 times a prefill),
@@ -208,7 +234,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    no launch in decode; ``lm_check`` in fp32 (whisper at full depth,
    moonshot cut to 2 layers and llava to 4 to fit fp32 on the card);
    K4 at every shape the runs gave it;
-23. mesh_train — lm_train's run (``launch/train.py::train``, its config,
+24. mesh_train — lm_train's run (``launch/train.py::train``, its config,
    seed and batches) for 2 steps under the card's (1, 1) mesh
    (``launch/mesh.py::make_host_mesh``, an NCCL group of one) with
    ``tp_mode="megatron"``: the state and batches DTensors, K4 and K5 on
@@ -217,18 +243,18 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    wrappers'; the losses against lm_train's (step 1 within 1e-6, step 2
    within lm_train's own rerun bound, 1e-3); s/step and peak memory
    beside lm_train's;
-24. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
+25. mesh_serve — lm_serve's run through ``ServeEngine(mesh=...)`` on
    the same mesh: its 4 x 16 tokens must equal lm_serve's;
-25. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
+26. mesh_moe — moonshot-v1-16b-a3b at full width cut to 2 layers: the
    forward's logits through the MoE's expert-parallel mesh path (its
    ``local_map`` body and all-reduce over ``model``) against the
    mesh-less path's, within ``LM_RTOL`` of the largest logit;
-26. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
+27. mesh_cnn — one step of ``launch/dryrun_cnn.py``'s train step
    (``core/conv_shard.py``'s kernel-sharded conv: K1, K2 and K3 through
    ``local_map``) on the mesh, cifar_cnn_500_1500, batch 32, gather
    rules, held against phase 7's float64 step; K1-K3 at its shapes;
    then the §4.1.1 probe (``core/profiling.py``) on the card;
-27. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
+28. dryrun — ``launch/dryrun.py`` and ``launch/dryrun_cnn.py`` in
    subprocesses started together (each owns its fake process group):
    mamba2-370m train_4k on (16, 16) and decode_32k on (2, 16, 16), both
    under 80 GB a device; hymba-1.5b train_4k in megatron and gather;
@@ -240,8 +266,9 @@ Phases, each printing JSON lines (``{"phase": ...}``):
 
 Every wrapper's launch count is set to 0 just before a main-path run
 (serve, train, lm_serve, each lm_train run, the in-process hierarchy,
-each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn, and the
-wire, recover, codec and admission runs) and read just after; a slave
+each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn, the wire,
+recover, codec and admission runs, and parts (a), (b) and (d) of the
+axes phase) and read just after; a slave
 process starts with its own counts at 0 and writes them when it leaves,
 with whether it imported ``ml_dtypes`` (the run fails if any process
 did: the bf16 wire stage is numpy only).
@@ -363,6 +390,16 @@ CODEC_STEPS = 2
 # the requests that must expire before start() (they wait 50 ms)
 ADMISSION_IMAGES = 16
 ADMISSION_DEADLINE_S = 1e-3
+# phase 22 (axes): the steps of each training run, the requests of each
+# serving run, part (c)'s emulated links and the thin links whose picks
+# are resolved without a run, the factor on device 1's probe time that
+# leaves it no strip row and no sample in part (b), and part (c)'s axes
+AXES_STEPS = 2
+AXES_REQUESTS = 8
+AXES_MBPS = 1000.0
+AXES_THIN_MBPS = 25.0
+AXES_ZERO_SHARE = 1e4
+AXES_MODES = ("auto", "kernel", "spatial", "batch")
 # the flat cluster's slave processes write their launch counts here (the
 # checkout's gitignored build directory)
 WIRE_DIR = ROOT / "build" / "chip_smoke_wire"
@@ -428,6 +465,16 @@ protocol.main()
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: seconds since the run began at which each numbered phase of main()
+#: (a section's number, or a range of them) began, for the done line
+PHASE_START_S = {}
+_T0 = time.perf_counter()
+
+
+def mark(section: str) -> None:
+    PHASE_START_S[section] = time.perf_counter() - _T0
 
 
 def fail(msg: str) -> None:
@@ -691,10 +738,16 @@ def check_shape(ks: Kernels, kind, dev, b, h, w, cin, cout, k, dtype, *, label,
     rec["library_ms"] = events_ms(library_call(kind, x, wt, g), reps)
     if copy:
         # the cuda backend's numpy contract: x and the weight shard go to
-        # the card, y comes back, on every conv call
+        # the card, y comes back, on every conv call; every conv_vjp call
+        # sends x, w and g and brings dX and dW back
+        dw_back = torch.empty_like(wt) if kind == "conv2d_dx" else None
+
         def roundtrip():
             torch.from_numpy(xn).to(dev)
             torch.from_numpy(wn).to(dev)
+            if dw_back is not None:
+                torch.from_numpy(gn).to(dev)
+                dw_back.cpu()
             got.cpu()
         rec["copy_ms"] = events_ms(roundtrip, max(5, reps // 4))
     return rec
@@ -851,6 +904,18 @@ def _arrays(obj) -> list:
     return found
 
 
+def empty_op(op, payload) -> bool:
+    """Whether a conv or backward op asks for a shard with no output row
+    or channel (a strip or sample slice of 0 rows, a kernel slice of 0
+    kernels where the kernel itself is shipped), which launches nothing."""
+    if op not in ("conv", "sconv", "bwd", "sbwd"):
+        return False
+    x, w = payload[0], payload[1]
+    g = payload[2] if op in ("bwd", "sbwd") else None
+    return x.size == 0 or (g is not None and g.size == 0) or (
+        isinstance(w, np.ndarray) and w.shape[-1] == 0)
+
+
 class WireLog:
     """Watches one ``run_hetero`` or ``run_serve`` call over a process
     transport (tcp or shm) through the cluster's own seams: while it is
@@ -900,6 +965,8 @@ class WireLog:
         dev = next(d for d, s in cluster._registry.items() if s is sock)
         op, payload = msg
         self.ops[dev][op] += 1
+        if empty_op(op, payload):
+            self.ops[dev][f"{op} empty"] += 1
         w = payload[1]
         if isinstance(w, WeightRef):
             w = w.w
@@ -1136,9 +1203,10 @@ def run_shapes(phase, master_log, master_counts, slaves) -> tuple:
 
 def check_slave_launches(phase, slaves, training) -> dict:
     """Each ``cuda`` slave process that left on its own launched K1 once
-    per conv shard it was sent beyond its probes' launches, and K2 and
-    K3 once per backward shard (none when serving); fails otherwise.
-    Returns its shard launches by kernel name, summed over the slaves."""
+    per non-empty conv shard it was sent beyond its probes' launches, and
+    K2 and K3 once per non-empty backward shard (none when serving);
+    fails otherwise.  Returns its shard launches by kernel name, summed
+    over the slaves."""
     total = collections.Counter()
     for r in slaves:
         if r["backend"] != "cuda":
@@ -1149,9 +1217,9 @@ def check_slave_launches(phase, slaves, training) -> dict:
             continue
         shard = {k: n - r["counts"]["probe_launches"][k]
                  for k, n in r["counts"]["launches"].items()}
-        ops = r["ops_sent"]
-        want = {"conv2d_fwd": ops.get("conv", 0) + ops.get("sconv", 0)}
-        bwd = ops.get("bwd", 0) + ops.get("sbwd", 0)
+        ops = collections.Counter(r["ops_sent"])
+        want = {"conv2d_fwd": sum(ops[op] - ops[f"{op} empty"] for op in ("conv", "sconv"))}
+        bwd = sum(ops[op] - ops[f"{op} empty"] for op in ("bwd", "sbwd"))
         want["conv2d_dx"] = want["conv2d_dw"] = bwd
         if shard != want or want["conv2d_fwd"] == 0 or (training and bwd == 0):
             fail(f"{phase}: cuda slave {r['device']} launched {shard} beyond its "
@@ -1194,14 +1262,16 @@ def read_counts(ks: Kernels, names=None) -> dict:
             if names is None or name in names}
 
 
-def path_shapes(ks, kind, dev, shapes, phase, path):
+def path_shapes(ks, kind, dev, shapes, phase, path, copy=False):
     """The kernel against its plain version at every shape a main-path
     run gave it (K1 and K3 run twice: the same bits); each record carries
-    its launch count."""
+    its launch count, and with ``copy`` the cuda backend's copies of a
+    call at that shape (K1: its conv's, K2: its conv_vjp's)."""
     recs = []
     for shape, n in sorted(shapes.items()):
         r = check_shape(ks, kind, dev, *shape, torch.float32,
                         label=f"{path} x{n}", phase=phase,
+                        copy=copy and kind != "conv2d_dw",
                         rerun=kind in ("conv2d_fwd", "conv2d_dw"))
         r.update(launches=n, path=path)
         emit(r)
@@ -2018,7 +2088,7 @@ def lm_train_check(ks, dev):
     return rec
 
 
-# -- the mesh layer (phases 21-25) -------------------------------------------
+# -- the mesh layer (phases 24-27) -------------------------------------------
 
 
 def mesh_train(ks, dev, mesh, lm_rec, attn_recs, ssd_recs):
@@ -2400,15 +2470,20 @@ def step_errs(phase, losses, history, ref_losses, ref_params, held) -> tuple:
     return l_errs, p_errs
 
 
-def local_step_errs(phase, cfg, batch, lr, dev, losses, history) -> tuple:
+def local_step_errs(phase, cfg, batch, lr, dev, losses, history, first=None) -> tuple:
     """Each step of a run against one float64 step taken from the run's
     own params before it (the initial params for step 1), so no step
     inherits an earlier step's error; fails unless every step is within
-    LOSS_ATOL and PARAM_ATOL.  Returns (loss errs, param errs)."""
+    LOSS_ATOL and PARAM_ATOL.  ``first``, the float64 step's (loss,
+    params) from the initial params (phase 7's), spares recomputing it.
+    Returns (loss errs, param errs)."""
     l_errs, p_errs = [], []
     for i, (loss, got) in enumerate(zip(losses, history)):
-        (want_loss,), (want,) = float64_steps(cfg, batch, 1, lr, dev,
-                                              start=history[i - 1] if i else None)
+        if i == 0 and first is not None:
+            want_loss, want = first
+        else:
+            (want_loss,), (want,) = float64_steps(cfg, batch, 1, lr, dev,
+                                                  start=history[i - 1] if i else None)
         l_errs.append(abs(loss - want_loss))
         p_errs.append(params_err(got, want))
         if l_errs[-1] > LOSS_ATOL or p_errs[-1] > PARAM_ATOL:
@@ -2552,11 +2627,12 @@ def wire_phase(ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params,
     return recs, launches, shape_recs
 
 
-def conv_path_shapes(ks, dev, fwd, bwd, path) -> dict:
+def conv_path_shapes(ks, dev, fwd, bwd, path, copy=False) -> dict:
     """K1 at every forward shape and K2 and K3 at every backward shape
     of a path, each against its plain version (``path_shapes``)."""
-    return {"conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, fwd, "main_path_shape", path),
-            "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, bwd, "main_path_shape", path),
+    return {"conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, fwd, "main_path_shape", path,
+                                      copy),
+            "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, bwd, "main_path_shape", path, copy),
             "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, bwd, "main_path_shape", path)}
 
 
@@ -3098,6 +3174,451 @@ def admission_phase(ks, dev, c1, c2, image, max_batch) -> tuple:
     return out, launches, conv_path_shapes(ks, dev, fwd, bwd, "admission")
 
 
+class ShardLog:
+    """Every shard each device computes, through the four functions the
+    three axes compute one with (``protocol.conv_shard`` and
+    ``bwd_shard``: a kernel or sample shard; ``backends.strip_conv`` and
+    ``strip_conv_vjp``: a height strip), and the K1 launches of the Eq.
+    1 probes.  In-process slave threads carry their device id
+    (``protocol.slave_loop``); every other thread computes device 0's,
+    the master's.  A shard is empty when it has no output row or channel
+    (a strip or sample slice of 0 rows, or 0 kernels).  Each non-empty
+    strip also adds its image-rows computed (the strip and its halo,
+    zero padded to ``strip_h + kh - 1`` rows) and kept (``strip_h``)
+    under its backend, way and Cin."""
+
+    def __init__(self, ks):
+        self.ks = ks
+        self.shards = collections.Counter()  # (device, backend, way, empty) -> n
+        self.rows = {}  # (backend, way, cin) -> [computed, kept]
+        self.probe_k1 = 0
+        self.lock = threading.Lock()
+        self.tls = threading.local()
+
+    def _counted(self, fn, way, strip):
+        def run(backend, x, w, *rest):
+            out = fn(backend, x, w, *rest)
+            empty = (out if way == "fwd" else rest[0]).size == 0 or x.size == 0
+            with self.lock:
+                self.shards[(getattr(self.tls, "device", 0), backend.name, way, empty)] += 1
+                if strip and not empty:
+                    computed = x.shape[1] + rest[-2] + rest[-1]
+                    r = self.rows.setdefault((backend.name, way, int(x.shape[-1])), [0, 0])
+                    r[0] += x.shape[0] * computed
+                    r[1] += x.shape[0] * (computed - (w.shape[0] - 1))
+            return out
+        return run
+
+    def _probe(self, fn):
+        k1 = self.ks.wrapper["conv2d_fwd"]
+
+        def run(*a, **kw):  # probes run one device at a time
+            before = k1.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                with self.lock:
+                    self.probe_k1 += k1.launches - before
+        return run
+
+    def __enter__(self):
+        from repro_torch.core import backends
+        from repro_torch.core.cluster import cluster, protocol
+
+        loop = protocol.slave_loop
+
+        def slave_loop(endpoint, slowdown, backend_name, device):
+            self.tls.device = device
+            return loop(endpoint, slowdown, backend_name, device)
+
+        fwd, bwd = backends.strip_conv, backends.strip_conv_vjp
+        self._saved = [(m, name, getattr(m, name)) for m, name in (
+            (protocol, "slave_loop"), (protocol, "conv_shard"), (protocol, "bwd_shard"),
+            (backends, "strip_conv"), (backends, "strip_conv_vjp"),
+            (cluster, "strip_conv"), (cluster, "strip_conv_vjp"),
+            (backends, "probe_conv_time"), (cluster, "probe_conv_time"))]
+        protocol.slave_loop = slave_loop
+        protocol.conv_shard = self._counted(protocol.conv_shard, "fwd", False)
+        protocol.bwd_shard = self._counted(protocol.bwd_shard, "bwd", False)
+        backends.strip_conv = cluster.strip_conv = self._counted(fwd, "fwd", True)
+        backends.strip_conv_vjp = cluster.strip_conv_vjp = self._counted(bwd, "bwd", True)
+        backends.probe_conv_time = self._probe(backends.probe_conv_time)
+        cluster.probe_conv_time = self._probe(cluster.probe_conv_time)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._saved:
+            setattr(m, name, fn)
+
+    def nonempty(self, backend, way) -> int:
+        return sum(n for (_, b, w, empty), n in self.shards.items()
+                   if b == backend and w == way and not empty)
+
+    def check_launches(self, phase, counts) -> dict:
+        """Fails unless K1 ran once per non-empty ``cuda`` forward shard
+        and probe launch, and K2 and K3 once per non-empty ``cuda``
+        backward shard: an empty shard launches nothing."""
+        want = {"conv2d_fwd": self.nonempty("cuda", "fwd") + self.probe_k1,
+                "conv2d_dx": self.nonempty("cuda", "bwd"),
+                "conv2d_dw": self.nonempty("cuda", "bwd")}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"{phase}: launches {got}, the non-empty cuda shards and probes {want}")
+        return want
+
+    def record(self) -> dict:
+        return {"shards": [[d, b, w, "empty" if e else "nonempty", n]
+                           for (d, b, w, e), n in sorted(self.shards.items())],
+                "probe_k1_launches": self.probe_k1,
+                "strip_rows": [[b, w, cin, c, k, c / k]
+                               for (b, w, cin), (c, k) in sorted(self.rows.items())],
+                "strip_rows_fields": ["backend", "way", "cin", "image_rows_computed",
+                                      "image_rows_kept", "computed_over_kept"]}
+
+
+class ProbeScale:
+    """While entered, ``launch/hetero.py`` builds a ``HeteroCluster``
+    whose ``probe()`` multiplies device ``dev``'s measured time by
+    ``factor``, as setting ``probe_times`` does: its Eq. 1 share falls
+    without the sleeps an emulated slowdown would add to its ops."""
+
+    def __init__(self, dev, factor):
+        self.dev, self.factor = dev, factor
+
+    def __enter__(self):
+        import repro_torch.launch.hetero as hetero
+
+        self._hetero, self._base = hetero, hetero.HeteroCluster
+        dev, factor = self.dev, self.factor
+
+        class Scaled(self._base):
+            def probe(self, **kw):
+                times = super().probe(**kw)
+                self.probe_times = [t * factor if i == dev else t for i, t in enumerate(times)]
+                return self.probe_times
+
+        hetero.HeteroCluster = Scaled
+        return self
+
+    def __exit__(self, *exc):
+        self._hetero.HeteroCluster = self._base
+
+
+def ranked_first(pred) -> str:
+    """The axis ``predict_partition_seconds`` ranks fastest, ties to the
+    paper's order (kernel, spatial, batch), as the resolver breaks them."""
+    return min(("kernel", "spatial", "batch"), key=pred.get)
+
+
+class ResolveLog:
+    """Every ``auto`` axis decision (``plans.resolve_mode``) while
+    entered: the layer's shapes, the op its plan governs, the weight
+    cache's state, the pick, whether the cluster's memo answered, and
+    ``predict_partition_seconds`` over the cluster's state at that call
+    with the axis it ranks first, and that state (probe times and FLOPs,
+    the master's duty), so the same layers can be resolved on another
+    link."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core.cluster import plans
+
+        self.plans, self.real = plans, plans.resolve_mode
+
+        def resolve_mode(cluster, x_shape, w_shape, override, op="conv",
+                         weights_cached=False):
+            memo = getattr(cluster, "_mode_cache", None)
+            hit = memo is not None and (tuple(x_shape), tuple(w_shape), op,
+                                        bool(weights_cached)) in memo
+            pick = self.real(cluster, x_shape, w_shape, override, op, weights_cached)
+            if (override or cluster.partition) == "auto":
+                pred = plans.predict_partition_seconds(cluster, x_shape, w_shape, op,
+                                                       weights_cached=weights_cached)
+                self.calls.append({
+                    "layer": "conv1" if w_shape[2] == 3 else "conv2", "op": op,
+                    "x": list(x_shape), "w": list(w_shape),
+                    "weights_cached": bool(weights_cached), "pick": pick, "memo_hit": hit,
+                    "predicted_s": pred, "ranked_first": ranked_first(pred),
+                    "state": {"probe_s": [float(t) for t in cluster.probe_times],
+                              "probe_flops": cluster.probe_flops,
+                              "comp_duty": cluster.comp_duty}})
+            return pick
+
+        plans.resolve_mode = resolve_mode
+        return self
+
+    def __exit__(self, *exc):
+        self.plans.resolve_mode = self.real
+
+
+def thin_link_picks(calls, mbps) -> list:
+    """``resolve_mode`` alone, nothing run: each distinct decision of
+    ``calls`` resolved again on links of ``mbps`` from the state it was
+    made in (a cluster of ``numpy`` threads holding that state)."""
+    from repro_torch.core.cluster import plans
+    from repro_torch.core.master_slave import HeteroCluster
+
+    c = HeteroCluster([1.0] * 3, ["numpy"] * 3, partition="auto", bandwidth_mbps=mbps)
+    out, seen = [], set()
+    try:
+        for call in calls:
+            key = (call["layer"], call["op"], tuple(call["x"]), call["weights_cached"])
+            if key in seen:
+                continue
+            seen.add(key)
+            st = call["state"]
+            c.probe_times, c.probe_flops, c.comp_duty = (
+                list(st["probe_s"]), st["probe_flops"], st["comp_duty"])
+            c._mode_cache.clear()
+            pick = plans.resolve_mode(c, tuple(call["x"]), tuple(call["w"]), None, call["op"],
+                                      call["weights_cached"])
+            pred = plans.predict_partition_seconds(c, tuple(call["x"]), tuple(call["w"]),
+                                                   call["op"], call["weights_cached"])
+            if pick != ranked_first(pred):
+                fail(f"axes auto at {mbps} Mbps: {call['layer']} picked {pick}, the "
+                     f"predictor ranks {ranked_first(pred)} first: {pred}")
+            out.append({"layer": call["layer"], "op": call["op"], "x": call["x"],
+                        "weights_cached": call["weights_cached"], "pick": pick,
+                        "predicted_s": pred, "at_1000_mbps": call["pick"]})
+    finally:
+        c.shutdown()
+    return out
+
+
+def strip_rows(log) -> dict:
+    """A ``ShardLog``'s image-rows computed and kept by the ``cuda``
+    devices' forward strips, by layer."""
+    out = {}
+    for (b, way, cin), (computed, kept) in log.rows.items():
+        if b == "cuda" and way == "fwd":
+            out["conv1" if cin == 3 else "conv2"] = {
+                "computed": computed, "kept": kept, "computed_over_kept": computed / kept}
+    return out
+
+
+def axes_phase(ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params) -> tuple:
+    """Phase 22: the flat cluster's other partition axes at full width,
+    through ``run_hetero`` and ``run_serve`` over phase 7's network,
+    backends, batch, microbatches and lr.  (a) In process, in one
+    profiler trace: ``AXES_STEPS`` training steps and ``AXES_REQUESTS``
+    requests under ``spatial`` and under ``batch``; (b) device 1 left no
+    strip row, then no sample, by its probe time; (c) ``auto``,
+    ``kernel``, ``spatial`` and ``batch`` on emulated ``AXES_MBPS``
+    links, and ``auto``'s picks on ``AXES_THIN_MBPS`` from the resolver
+    alone; (d) ``spatial`` and ``batch`` over shm with device 1 a
+    ``cuda`` slave process; (e) K1-K3 at every shape (a) gave them.
+    Step 1 of every run is held against phase 7's float64 step, every
+    later step against one float64 step from the run's own params.
+    Returns (its JSON records, the cuda slaves' shard launches by run,
+    (a)'s shape records and trace, (d)'s shape records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.cluster.transport import ShmTransport
+    from repro_torch.launch.hetero import run_hetero, run_serve
+
+    backends = WIRE_BACKENDS
+    first = (ref_losses[0], ref_params[0])
+    kw = dict(train_kw, steps=AXES_STEPS)
+    skw = dict(serve_kw, requests=AXES_REQUESTS)
+    cuda_backend = get_backend("cuda")
+    recs, launches = [], {}
+
+    def step_errs_of(run, rec, hist):
+        if not np.isfinite(rec["losses"]).all():
+            fail(f"axes {run}: non-finite losses {rec['losses']}")
+        return local_step_errs(f"axes {run}", cfg, kw["batch"], kw["lr"], dev,
+                               rec["losses"], hist, first=first)
+
+    def train_record(part, run, rec, hist, run_s, **extra):
+        t0 = time.perf_counter()
+        l_errs, p_errs = step_errs_of(run, rec, hist)
+        extra["f64_check_s"] = time.perf_counter() - t0
+        return {"phase": "axes", "part": part, "run": run, "net": f"cifar_cnn_{c1}_{c2}",
+                "backends": backends, "transport": rec["transport"],
+                "partition": rec["partition"], "batch": kw["batch"],
+                "microbatches": kw["microbatches"], "lr": kw["lr"],
+                "steps": len(rec["losses"]), "losses": rec["losses"],
+                "loss_err_by_step": l_errs, "param_err_by_step": p_errs,
+                "loss_atol": LOSS_ATOL, "param_atol": PARAM_ATOL,
+                "held": "step 1 against phase 7's float64 step, each later step "
+                        "against one float64 step from the run's own params",
+                "s_per_step": rec["wall_s"] / len(rec["losses"]), "wall_s": rec["wall_s"],
+                "run_s": run_s, "probe_s": rec["probe_s"], "shares": rec["shares"],
+                "partition_choices": rec["partition_choices"],
+                "bandwidth_mbps": rec["bandwidth_mbps"], "comm_mib": rec["comm_mb"],
+                "timing_s": rec["timing"], **extra}
+
+    # (a) in process, one trace: spatial and batch, training and serving
+    # (the float64 references run after the trace)
+    fwd, bwd = collections.Counter(), collections.Counter()
+    shape_logs, runs = {}, {}
+    pad = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, ShardLog(ks) as shards:
+        for _ in range(TRACE_PAD_KERNELS):  # a trace after others can lose its first records
+            pad.add_(1)
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        for run, call, run_kw in (
+                [(f"train {a}", run_hetero, dict(kw, partition=a)) for a in ("spatial", "batch")]
+                + [(f"serve {a}", run_serve, dict(skw, partition=a))
+                   for a in ("spatial", "batch")]):
+            with ShapeLog(cuda_backend) as shape_logs[run]:
+                t0 = time.perf_counter()
+                out = call([1.0] * 3, backends, **run_kw)
+                torch.cuda.synchronize()
+                runs[run] = out + (time.perf_counter() - t0,)
+        run_s = time.perf_counter() - t_run
+        counts = read_counts(ks, CONV_KINDS)
+    trace = device_trace(prof, run_s)
+    for kind in CONV_KINDS:
+        if counts[kind] == 0:
+            fail(f"axes (a): the {kind} kernel was never launched")
+        if trace["kernels"][kind]["launches"] != counts[kind]:
+            fail(f"axes (a): the trace holds {trace['kernels'][kind]['launches']} {kind} "
+                 f"launches, the wrapper counted {counts[kind]}")
+    shards.check_launches("axes (a)", counts)
+    for run, (rec, out, t) in runs.items():
+        if run.startswith("train"):
+            recs.append(train_record("a", run, rec, out, t))
+            continue
+        axis = rec["partition"]
+        if not rec["all_ok"]:
+            fail(f"axes {run}: statuses {rec['statuses']}")
+        err = serve_f64_err(ks, dev, out, c1, c2, skw["image_size"], skw["requests"])
+        if err > SERVE_ATOL:
+            fail(f"axes {run}: max abs err {err} vs the float64 chain > {SERVE_ATOL}")
+        recs.append({"phase": "axes", "part": "a", "run": run, "partition": axis,
+                     "requests": skw["requests"], "max_batch": skw["max_batch"],
+                     "statuses": rec["statuses"], "throughput_rps": rec["throughput_rps"],
+                     "p50_ms": rec["p50_ms"], "p99_ms": rec["p99_ms"], "wall_s": rec["wall_s"],
+                     "run_s": t, "checked_outputs": 4, "max_abs_err_vs_f64_chain": err,
+                     "atol": SERVE_ATOL, "probe_s": rec["probe_s"], "shares": rec["shares"],
+                     "comm_mib": rec["comm_mb"]})
+    for r in recs:
+        emit(r)
+    for log in shape_logs.values():
+        fwd.update(log.fwd)
+        bwd.update(log.bwd)
+    emit({"phase": "axes", "part": "a", "run": "launches", "launches": counts,
+          "trace": trace, "run_s": run_s, **shards.record(),
+          "strip_rows_by_layer": strip_rows(shards),
+          "by_run": {run: {"fwd_by_shape": [list(k) + [n] for k, n in sorted(log.fwd.items())],
+                           "bwd_by_shape": [list(k) + [n] for k, n in sorted(log.bwd.items())]}
+                     for run, log in shape_logs.items()}})
+
+    # (b) device 1, a cuda device, left no strip row, then no sample
+    for axis in ("spatial", "batch"):
+        with ProbeScale(1, AXES_ZERO_SHARE), ShardLog(ks) as shards:
+            reset_counts(ks)
+            t0 = time.perf_counter()
+            rec, hist = run_hetero([1.0] * 3, backends, **dict(kw, partition=axis, steps=1))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = read_counts(ks, CONV_KINDS)
+        dev1 = {(way, empty): n for (d, b, way, empty), n in shards.shards.items() if d == 1}
+        if not dev1 or any(not empty for (_, empty) in dev1) or \
+                not all((way, True) in dev1 for way in ("fwd", "bwd")):
+            fail(f"axes (b) {axis}: device 1's shards {dev1}, want only empty ones")
+        shards.check_launches(f"axes (b) {axis}", counts)
+        r = train_record("b", f"zero share {axis}", rec, hist, run_s,
+                         probe_factor_device_1=AXES_ZERO_SHARE, launches=counts,
+                         **shards.record())
+        recs.append(r)
+        emit(r)
+
+    # (c) every axis on emulated links of AXES_MBPS; auto's picks held to
+    # the predictor's ranking, and resolved again on thin links
+    walls, picks = {}, None
+    for axis in AXES_MODES:
+        with ResolveLog() as resolved:
+            t0 = time.perf_counter()
+            rec, hist = run_hetero([1.0] * 3, backends, bandwidth_mbps=AXES_MBPS,
+                                   **dict(kw, partition=axis))
+            run_s = time.perf_counter() - t0
+        extra = {}
+        if axis == "auto":
+            calls = resolved.calls
+            fresh = [c for c in calls if not c["memo_hit"]]
+            wrong = [c for c in fresh if c["pick"] != c["ranked_first"]]
+            if not fresh or wrong:
+                fail(f"axes (c): auto's picks against the predictor's ranking: {wrong or calls}")
+            picks = calls
+            extra = {"picks": calls,
+                     "memo_picks_not_ranked_first": sum(
+                         c["pick"] != c["ranked_first"] for c in calls if c["memo_hit"]),
+                     "picks_at_thin_link": thin_link_picks(calls, AXES_THIN_MBPS),
+                     "thin_link_mbps": AXES_THIN_MBPS}
+        r = train_record("c", f"{axis} at {AXES_MBPS:g} Mbps", rec, hist, run_s, **extra)
+        walls[axis] = r["s_per_step"]
+        recs.append(r)
+        emit(r)
+    emit({"phase": "axes", "part": "c", "run": "s_per_step", "bandwidth_mbps": AXES_MBPS,
+          "s_per_step": walls, "fastest": min(walls, key=walls.get),
+          "auto_picks": sorted({(c["layer"], c["pick"]) for c in picks})})
+
+    # (d) spatial and batch over shm, device 1 a cuda slave process
+    p_fwd, p_bwd = collections.Counter(), collections.Counter()
+    for axis in ("spatial", "batch"):
+        with WireLog(f"axes_{axis}", ring_bytes=ShmTransport.DEFAULT_RING_BYTES) as log, \
+                ShapeLog(cuda_backend) as master_log:
+            reset_counts(ks)
+            t0 = time.perf_counter()
+            rec, hist = run_hetero([1.0] * 3, backends, transport="shm",
+                                   **dict(kw, partition=axis))
+            run_s = time.perf_counter() - t0
+            master_counts = read_counts(ks, CONV_KINDS)
+        slaves = log.slaves()
+        run = f"shm {axis}"
+        launches[f"axes {axis}"] = check_slave_launches(f"axes {run}", slaves, training=True)
+        ops = ("sconv", "sbwd") if axis == "spatial" else ("conv", "bwd")
+        cuda_slaves = [s for s in slaves if s["backend"] == "cuda"]
+        if not cuda_slaves or any(
+                min(s["ops_sent"].get(op, 0) - s["ops_sent"].get(f"{op} empty", 0)
+                    for op in ops) == 0 for s in cuda_slaves):
+            fail(f"axes {run}: the cuda slave was not sent non-empty {ops}: "
+                 f"{[s['ops_sent'] for s in cuda_slaves]}")
+        f, b = run_shapes(f"axes {run}", master_log, master_counts, slaves)
+        p_fwd.update(f)
+        p_bwd.update(b)
+        check_left(f"axes {run}", log, slaves)
+        r = train_record("d", run, rec, hist, run_s,
+                         ring_mib=ShmTransport.DEFAULT_RING_BYTES / 2 ** 20,
+                         measured_bandwidth_mbps=rec["measured_bandwidth_mbps"],
+                         wire=dict(log.tally), steps_wire=log.steps,
+                         master_launches=master_counts, slaves=slaves,
+                         slave_shard_launches=launches[f"axes {axis}"],
+                         shutdown=log.shutdown_rec)
+        recs.append(r)
+        emit(r)
+
+    # (e) K1-K3 at (a)'s shapes, with the cuda backend's copies of a call
+    t0 = time.perf_counter()
+    shape_recs = conv_path_shapes(ks, dev, fwd, bwd, "axes", copy=True)
+    shapes_s = time.perf_counter() - t0
+    copies = {}
+    for run, log in shape_logs.items():
+        per = kw["steps"] if run.startswith("train") else skw["requests"]
+        by = {kind: {tuple(r["shape"]["x"]) + (r["shape"]["w"][3], r["shape"]["w"][0]): r
+                     for r in shape_recs[kind]} for kind in ("conv2d_fwd", "conv2d_dx")}
+        copy_ms = (sum(n * by["conv2d_fwd"][s]["copy_ms"] for s, n in log.fwd.items())
+                   + sum(n * by["conv2d_dx"][s]["copy_ms"] for s, n in log.bwd.items()))
+        w_mib = sum(n * s[3] * s[4] * s[5] ** 2 * 4 for s, n in
+                    list(log.fwd.items()) + list(log.bwd.items())) / 2 ** 20
+        copies[run] = {"copy_ms": copy_ms, "weight_mib_to_card": w_mib,
+                       "per": "step" if run.startswith("train") else "request",
+                       "copy_ms_per": copy_ms / per, "weight_mib_per": w_mib / per}
+    emit({"phase": "axes", "part": "e", "run": "copies", "by_run": copies,
+          "shapes_checked": sum(len(r) for r in shape_recs.values()), "shapes_s": shapes_s,
+          "note": "each call's copies at its shape (x, w up and y back for a conv; "
+                  "x, w, g up and dX, dW back for a conv_vjp), the probes' included"})
+    process_recs = conv_path_shapes(ks, dev, p_fwd, p_bwd, "axes shm")
+    return recs, launches, (shape_recs, trace), process_recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
@@ -3124,6 +3645,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
+    mark("2")
     # -- 2. build: one nvcc per source, all started together ----------------
     libs = sorted(_build._SIGNATURES)
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -3140,6 +3662,7 @@ def main() -> int:
                 fail(f"build: {r['kernel']} spills: {r}")
     ks = Kernels()
 
+    mark("3")
     # -- 3. K1 against its plain version ------------------------------------
     sweep = [
         ("sweep", (1, 8, 8, 3, 16, 3)),
@@ -3162,6 +3685,7 @@ def main() -> int:
             emit(check_shape(ks, "conv2d_fwd", dev, *shape, dtype, label=label,
                              phase="kernel", copy=dtype == torch.float32))
 
+    mark("4")
     # -- 4. K2 and K3 against their plain versions --------------------------
     bwd_cases = sweep + [
         ("C1", (32, 32, 32, 3, 500, 5)),
@@ -3223,6 +3747,7 @@ def main() -> int:
     backends = ["cuda", "cuda", "numpy"]
     cuda_backend = get_backend("cuda")
 
+    mark("5")
     # -- 5. serve the headline network through the port ----------------------
     image, requests, max_batch = 32, 16, 4
     with ShapeLog(cuda_backend) as serve_log, \
@@ -3266,13 +3791,17 @@ def main() -> int:
           "checked_outputs": n_check, "max_abs_err_vs_f64_chain": serve_err,
           "atol": SERVE_ATOL})
 
+    mark("6")
     # -- 6. K1 at every shape the serve run gave it ---------------------------
     serve_recs = path_shapes(ks, "conv2d_fwd", dev, serve_log.fwd,
                              "main_path_shape", "serve")
 
+    mark("7")
     # -- 7. train the headline network through the port ----------------------
     cfg = make_cnn_config(c1, c2)
-    batch, micro, steps, lr = 32, 4, 3, 0.05
+    # 2 steps, which also set the hierarchy's and wire's: with the axes
+    # phase, 3 took the whole run past 800 s
+    batch, micro, steps, lr = 32, 4, 2, 0.05
     with ShapeLog(cuda_backend) as train_log, \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         reset_counts(ks)
@@ -3322,6 +3851,7 @@ def main() -> int:
           "fwd_by_shape": [list(k) + [n] for k, n in sorted(train_log.fwd.items())],
           "bwd_by_shape": [list(k) + [n] for k, n in sorted(train_log.bwd.items())]})
 
+    mark("8")
     # -- 8. one autograd step through Conv2dFunction on one device -----------
     params, imgs, labels = train_inputs(cfg, batch, dev)
     before = read_counts(ks, CONV_KINDS)
@@ -3340,6 +3870,7 @@ def main() -> int:
     emit({"phase": "train_autograd", "loss": loss, "f64_loss": ref_losses[0],
           "loss_err": a_loss_err, "max_param_err": a_param_err, "launches": used})
 
+    mark("9")
     # -- 9. K1, K2, K3 at every shape the train run gave them ----------------
     train_recs = {
         "conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, train_log.fwd,
@@ -3350,6 +3881,7 @@ def main() -> int:
                                  "main_path_shape", "train"),
     }
 
+    mark("10")
     # -- 10. K4 against its plain version ------------------------------------
     hymba_attn = (4, 25, 5, 2048, 2048, 64)
     for dtype in (torch.float32, torch.bfloat16):
@@ -3386,6 +3918,7 @@ def main() -> int:
             emit(check_attn(ks, dev, *shape, causal, window, dtype, label=label,
                             phase="kernel_attn"))
 
+    mark("11")
     # -- 11. K5 against its plain version ------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
         for s_, h_, p_, n_, chunk in ((32, 2, 8, 4, 8), (48, 3, 16, 8, 16), (25, 1, 4, 4, 8)):
@@ -3439,6 +3972,7 @@ def main() -> int:
           "blocks_per_head_scan": 4 * 50})
     del ssd_args, y1, y2, s1, s2
 
+    mark("12")
     # -- 12. serve hymba-1.5b at full width through the port -----------------
     arch, lm_batch, prompt, new = "hymba-1.5b", 4, 2048, 16
     hymba_layers = 32
@@ -3447,21 +3981,25 @@ def main() -> int:
         {"flash_attention": hymba_layers, "ssd": hymba_layers}, "lm_serve")
     emit(lm_rec)
 
+    mark("13")
     # -- 13. the kernel path against the plain path, fp32 at full width ------
     emit(lm_check(dev, arch, lm_batch, prompt, new, SEED))
     torch.cuda.empty_cache()
 
+    mark("14")
     # -- 14. K4 and K5 at every shape the lm_serve run gave them -------------
     attn_recs = attn_path_shapes(ks, dev, attn_shapes, "lm_serve")
     ssd_recs = ssd_path_shapes(ks, dev, ssd_shapes, "lm_serve")
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("15")
     # -- 15. K4 and K5 with their gradients, at the training shapes ---------
     for dtype in (torch.float32, torch.bfloat16):
         emit(check_grad_attn(ks, dev, 2, 25, 5, TRAIN_SEQ, TRAIN_SEQ, 64, True, 1024, dtype))
         emit(check_grad_ssd(ks, dev, 2, TRAIN_SEQ, 50, 1, 64, 16, 256, dtype))
 
+    mark("16")
     # -- 16. train hymba-1.5b at full width through the port ----------------
     emit({"phase": "lm_train", "arch": TRAIN_ARCH, "event": "start",
           "allocated_gb_before": torch.cuda.memory_allocated() / 1e9})
@@ -3473,6 +4011,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("17")
     # -- 17. train the headline network over two sub-master groups ----------
     from repro_torch.core.cluster.hierarchy import HierarchicalCluster
 
@@ -3591,6 +4130,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("18-19")
     # -- 18-19. the flat cluster's slave processes -------------------------
     train_kw = dict(device="cuda", train_pipeline=True, microbatches=micro, c1=c1,
                     c2=c2, batch=batch, steps=steps, lr=lr, partition="kernel")
@@ -3601,16 +4141,24 @@ def main() -> int:
         {"s_per_step": trec["wall_s"] / steps}, serve_rec)
     _, slave_launches["recover"], recover_recs = recover_phase(ks, dev, cfg, c1, c2,
                                                                train_kw)
+    mark("20-21")
     # -- 20-21. the wire codec, and ClusterServer's admission -----------------
     _, codec_launches, codec_recs = codec_phase(ks, dev, cfg, c1, c2, train_kw)
     slave_launches.update({f"codec {run}": n for run, n in codec_launches.items()})
     _, slave_launches["admission"], admission_recs = admission_phase(ks, dev, c1, c2, image,
                                                                      max_batch)
+    mark("22")
+    # -- 22. the spatial, batch and auto axes ---------------------------------
+    _, axes_launches, (axes_recs, axes_trace), axes_process_recs = axes_phase(
+        ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params)
+    slave_launches.update(axes_launches)
     process_recs = {kind: {"wire": wire_recs[kind], "recover": recover_recs[kind],
-                           "codec": codec_recs[kind], "admission": admission_recs[kind]}
+                           "codec": codec_recs[kind], "admission": admission_recs[kind],
+                           "axes shm": axes_process_recs[kind]}
                     for kind in CONV_KINDS}
 
-    # -- 22. the rest of the model zoo at full width -------------------------
+    mark("23")
+    # -- 23. the rest of the model zoo at full width -------------------------
     zoo_runs = {}
     for arch, zb, zprompt, znew, k4, check_layers in ZOO:
         emit({"phase": "lm_zoo", "arch": arch, "event": "start",
@@ -3625,7 +4173,8 @@ def main() -> int:
                                       z_trace)
         torch.cuda.empty_cache()
 
-    # -- 23-26. the mesh layer on the card's (1, 1) mesh ---------------------
+    mark("24-27")
+    # -- 24-27. the mesh layer on the card's (1, 1) mesh ---------------------
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh("cuda")
@@ -3640,7 +4189,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 27. the dry run at 256 / 512 GPUs and on the card's mesh -----------
+    mark("28")
+    # -- 28. the dry run at 256 / 512 GPUs and on the card's mesh -----------
     for r in dryrun_records(mt_rec):
         emit(r)
 
@@ -3650,18 +4200,21 @@ def main() -> int:
               {"serve": (serve_recs, serve_trace),
                "train": (train_recs["conv2d_fwd"], train_trace),
                "hierarchy": (hier_recs["conv2d_fwd"], hier_trace),
+               "axes": (axes_recs["conv2d_fwd"], axes_trace),
                "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace)},
               untraced=process_recs["conv2d_fwd"]),
         entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:94",
               {"train": (train_recs["conv2d_dx"], train_trace),
                "hierarchy": (hier_recs["conv2d_dx"], hier_trace),
+               "axes": (axes_recs["conv2d_dx"], axes_trace),
                "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace)},
               untraced=process_recs["conv2d_dx"]),
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
               {"train": (train_recs["conv2d_dw"], train_trace),
                "hierarchy": (hier_recs["conv2d_dw"], hier_trace),
+               "axes": (axes_recs["conv2d_dw"], axes_trace),
                "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace)},
               untraced=process_recs["conv2d_dw"]),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
@@ -3686,7 +4239,9 @@ def main() -> int:
         fail("the JAX package or jax was imported")
     if "ml_dtypes" in sys.modules:
         fail("ml_dtypes was imported (the bf16 wire stage is numpy only)")
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    mark("done")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_start_s": PHASE_START_S})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,9 +63,16 @@ _DOWN_SLOTS = {
 _FLOATS = (np.float32, np.float64)
 
 
-#: the bf16 stage's marker (numpy has no bfloat16 dtype): a stage is
-#: ``None`` (fp32), a numpy dtype (fp16), ``BF16`` or ``"int8"``
-BF16 = "bf16"
+class _Bf16Marker(str):
+    """The bf16 stage's marker (numpy has no bfloat16 dtype): the string
+    ``"bf16"`` to specs, command lines and comparisons, with the 2-byte
+    ``itemsize`` a numpy dtype stage carries."""
+
+    itemsize = 2
+
+
+#: a stage is ``None`` (fp32), a numpy dtype (fp16), ``BF16`` or ``"int8"``
+BF16 = _Bf16Marker("bf16")
 
 
 def resolve_wire_dtype(name: Optional[str]):
@@ -317,8 +324,6 @@ def _stage_itemsize(stage) -> float:
         return 4.0
     if stage == "int8":
         return 1.0
-    if stage == BF16:
-        return 2.0
     return float(stage.itemsize)
 
 
