@@ -263,12 +263,31 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    counted peak are printed beside mesh_train's half step and
    ``max_memory_allocated``, with their ratios.  The records are also
    written under the gitignored ``build/chip_smoke_dryrun/``.
+29. examples — the port's four examples (``EXAMPLES``), each module's
+   ``main`` run in process with ``--device cuda`` at its reference's
+   defaults, all in one profiler trace: ``quickstart_torch`` (the CNN
+   trained 30 steps locally through ``Conv2dFunction`` and then over
+   ``HeteroCluster([1.0, 1.0, 2.0])`` of ``cuda`` devices; the drift of
+   the two loss curves under 1e-2 and the loss falling),
+   ``hetero_cluster_torch`` (one conv on one device, Eq. 1 and the equal
+   split over three ``cuda`` devices, the barrier and pipelined ``sim``
+   clusters at 50 Mbps, a ``numpy`` master with ``cuda`` slaves),
+   ``serve_batched_torch`` (dense, sliding-window 16 and SSM caches,
+   sampled at temperature 0.8) and ``train_lm_torch`` (lm-100m, 300
+   adam steps, a checkpoint saved, restored and evaluated; the learned
+   assertion).  Each example's own assertions are the run's checks.
+   K1-K5 each launched, each wrapper's count equal to the trace's (read
+   from the profiler's raw records: ~1.4 M device events) and to the calls
+   ``KernelShapes`` saw; one line of each example's numbers; then each
+   kernel against its plain version at every shape the examples gave
+   it (fp32: K4 at window 16 against S 32, K5 at chunk 16 inside one
+   64-step tile).
 
 Every wrapper's launch count is set to 0 just before a main-path run
 (serve, train, lm_serve, each lm_train run, the in-process hierarchy,
 each lm_zoo run, mesh_train, mesh_serve, mesh_moe, mesh_cnn, the wire,
-recover, codec and admission runs, and parts (a), (b) and (d) of the
-axes phase) and read just after; a slave
+recover, codec and admission runs, parts (a), (b) and (d) of the axes
+phase, and the examples) and read just after; a slave
 process starts with its own counts at 0 and writes them when it leaves,
 with whether it imported ``ml_dtypes`` (the run fails if any process
 did: the bf16 wire stage is numpy only).
@@ -400,6 +419,15 @@ AXES_MBPS = 1000.0
 AXES_THIN_MBPS = 25.0
 AXES_ZERO_SHARE = 1e4
 AXES_MODES = ("auto", "kernel", "spatial", "batch")
+# phase 29 (examples): the port's four examples, each run as its ``main``
+# with --device cuda at its reference's defaults (train_lm's checkpoint
+# under the checkout's gitignored build directory), and the last lines of
+# each one's output kept in its record
+EXAMPLES_DIR = ROOT / "build" / "chip_smoke_examples"
+EXAMPLES = (("quickstart_torch", []), ("hetero_cluster_torch", []),
+            ("serve_batched_torch", []),
+            ("train_lm_torch", ["--ckpt-dir", str(EXAMPLES_DIR / "lm100m")]))
+EXAMPLE_TAIL = 12
 # the flat cluster's slave processes write their launch counts here (the
 # checkout's gitignored build directory)
 WIRE_DIR = ROOT / "build" / "chip_smoke_wire"
@@ -561,25 +589,40 @@ def device_trace(prof, window_s: float) -> dict:
     """The card's activity in a profiler trace: each wrapper's kernel
     launches and summed time (``SYMBOLS``), and the share of
     ``window_s`` in which any kernel or copy ran (overlaps counted once;
-    the ranges ``VJP_RANGES`` mark on the card's timeline are no work)."""
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name not in VJP_RANGES]
-    kernels = {}
-    for name, syms in SYMBOLS.items():
-        ours = [e for e in dev if any(s in e.name for s in syms)]
-        kernels[name] = {
-            "launches": sum(syms[0] in e.name for e in ours),
-            "ms": sum(e.time_range.elapsed_us() for e in ours) / 1e3,
-        }
-    busy_us, end = 0.0, float("-inf")
-    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in dev):
+    the ranges ``VJP_RANGES`` mark on the card's timeline are no work).
+    Read from the profiler's raw records, each distinct name matched
+    against ``SYMBOLS`` once: building ``prof.events()``' objects for a
+    trace of ~10^6 kernels takes minutes."""
+    results = prof.profiler.kineto_results
+    cuda = torch.autograd.DeviceType.CUDA
+    kind_of = {}  # name -> (kernel kind or None, counts as a launch)
+    kernels = {name: {"launches": 0, "ms": 0.0} for name in SYMBOLS}
+    spans = []
+    for e in results.events():
+        if e.device_type() != cuda:
+            continue
+        name = e.name()
+        if name in VJP_RANGES:
+            continue
+        t0 = e.start_ns()
+        t1 = t0 + e.duration_ns()
+        spans.append((t0, t1))
+        if name not in kind_of:
+            kind_of[name] = next(((k, syms[0] in name) for k, syms in SYMBOLS.items()
+                                  if any(sym in name for sym in syms)), (None, False))
+        kind, launch = kind_of[name]
+        if kind is not None:
+            kernels[kind]["launches"] += launch
+            kernels[kind]["ms"] += (t1 - t0) / 1e6
+    spans.sort()
+    busy_ns, end = 0, float("-inf")
+    for t0, t1 in spans:
         if t1 > end:
-            busy_us += t1 - max(t0, end)
+            busy_ns += t1 - max(t0, end)
             end = t1
-    return {"device_events": len(dev), "kernels": kernels,
-            "busy_ms": busy_us / 1e3, "window_ms": window_s * 1e3,
-            "busy_share": busy_us / 1e6 / window_s}
+    return {"device_events": len(spans), "kernels": kernels,
+            "busy_ms": busy_ns / 1e6, "window_ms": window_s * 1e3,
+            "busy_share": busy_ns / 1e9 / window_s}
 
 
 def traced_grids(fn, names, calls: int = 3) -> dict:
@@ -1328,15 +1371,26 @@ def library_total(recs):
     return total(recs, "library_ms")
 
 
+def bound_of(groups) -> tuple:
+    """(bound ms, bound_by) of the work of ``groups``, pairs of (shape
+    records, their input dtype): each group's operations over its
+    dtype's peak, all bytes over the memory rate, the larger."""
+    t_ops = sum(total(rs, "flops") / PEAK_FLOPS[dt] for rs, dt in groups)
+    t_mem = sum(total(rs, "bytes") for rs, _ in groups) / PEAK_BYTES_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
 def path_totals(rs, dtype) -> dict:
     return {"plain_ms": total(rs, "plain_ms"), "library_ms": library_total(rs),
-            "bound_ms": bound(total(rs, "flops"), total(rs, "bytes"), dtype)[0]}
+            "bound_ms": bound_of([(rs, dtype)])[0]}
 
 
-def entry(kind, source, replaces, runs, dtype=torch.float32, untraced=None):
+def entry(kind, source, replaces, runs, dtype=torch.float32, untraced=None,
+          path_dtypes=None):
     """One kernels-line entry over the main-path runs that launched
     it: ``runs`` maps a path to (its shape records, its trace); the
-    bound takes the peak rate of the runs' input ``dtype``.
+    bound takes the peak rate of the runs' input ``dtype``, or of a
+    path's own in ``path_dtypes``.
     ``untraced`` maps a path that ran partly in slave processes, outside
     this process's counters and profiler, to its shape records: its
     ``by_path`` entry counts the launches of its master and slaves from
@@ -1344,7 +1398,12 @@ def entry(kind, source, replaces, runs, dtype=torch.float32, untraced=None):
     it but for ``max_abs_err``."""
     recs = [r for rs, _ in runs.values() for r in rs]
     untraced = untraced or {}
-    bound_ms, bound_by = bound(total(recs, "flops"), total(recs, "bytes"), dtype)
+    path_dtypes = path_dtypes or {}
+
+    def dtype_of(path):
+        return path_dtypes.get(path, dtype)
+
+    bound_ms, bound_by = bound_of([(rs, dtype_of(path)) for path, (rs, _) in runs.items()])
     return {
         "name": kind, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(tr["kernels"][kind]["launches"] for _, tr in runs.values()),
@@ -1356,7 +1415,8 @@ def entry(kind, source, replaces, runs, dtype=torch.float32, untraced=None):
         "library_ms": library_total(recs),
         "isolated_ms": total(recs, "ms"),
         "by_path": {**{path: {"launches": tr["kernels"][kind]["launches"],
-                              "ms": tr["kernels"][kind]["ms"], **path_totals(rs, dtype)}
+                              "ms": tr["kernels"][kind]["ms"],
+                              **path_totals(rs, dtype_of(path))}
                        for path, (rs, tr) in runs.items()},
                     **{path: {"launches": sum(r["launches"] for r in rs), "ms": None,
                               "traced": False, "max_abs_err": max(
@@ -3619,6 +3679,192 @@ def axes_phase(ks, dev, cfg, c1, c2, train_kw, serve_kw, ref_losses, ref_params)
     return recs, launches, (shape_recs, trace), process_recs
 
 
+class KernelShapes:
+    """Records the shape of every call of K1-K5 on CUDA tensors, by the
+    routes the examples take to them: the ``cuda`` backend's ``conv``
+    and ``conv_vjp`` (a cluster's devices and its probes: ``ShapeLog``),
+    ``Conv2dFunction``'s three operators (a local CNN's convs), and K4's
+    and K5's launch functions (``_flash_forward``, ``_ssd_forward``),
+    which every attention and SSD scan of a model reaches.  The keys are
+    ``path_shapes``', ``attn_path_shapes``' and ``ssd_path_shapes``'."""
+
+    def __init__(self, backend):
+        self.backend_log = ShapeLog(backend)
+        self.fwd, self.dx, self.dw = (collections.Counter() for _ in range(3))
+        self.attn, self.ssd = collections.Counter(), collections.Counter()
+        self.lock = threading.Lock()
+
+    def _tally(self, counter, key, t):
+        if t.is_cuda:
+            with self.lock:
+                counter[key] += 1
+
+    def __enter__(self):
+        from repro_torch.kernels import conv2d as conv_mod
+        from repro_torch.kernels import flash_attn as attn_mod
+        from repro_torch.kernels import ssd as ssd_mod
+
+        fwd, dx, dw = conv_mod.conv2d_op, conv_mod.conv2d_dx_op, conv_mod.conv2d_dw_op
+        flash, scan = attn_mod._flash_forward, ssd_mod._ssd_forward
+
+        def fwd_op(x, w):
+            self._tally(self.fwd, tuple(x.shape) + (w.shape[3], w.shape[0]), x)
+            return fwd(x, w)
+
+        def dx_op(g, w):
+            self._tally(self.dx, tuple(g.shape[:3]) + (w.shape[2], w.shape[3], w.shape[0]), g)
+            return dx(g, w)
+
+        def dw_op(x, g, kh, kw):
+            self._tally(self.dw, tuple(x.shape) + (g.shape[3], kh), x)
+            return dw(x, g, kh, kw)
+
+        def flash_forward(q, k, v, *, causal, window):
+            self._tally(self.attn, (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                    k.shape[2], q.shape[3], causal, window, q.dtype), q)
+            return flash(q, k, v, causal=causal, window=window)
+
+        def ssd_forward(x, dt, a, bm, cm, *, chunk):
+            self._tally(self.ssd, tuple(x.shape[:3]) + (bm.shape[2], x.shape[3], bm.shape[3],
+                                                        chunk, x.dtype), x)
+            return scan(x, dt, a, bm, cm, chunk=chunk)
+
+        self._saved = [(conv_mod, "conv2d_op", fwd), (conv_mod, "conv2d_dx_op", dx),
+                       (conv_mod, "conv2d_dw_op", dw), (attn_mod, "_flash_forward", flash),
+                       (ssd_mod, "_ssd_forward", scan)]
+        conv_mod.conv2d_op, conv_mod.conv2d_dx_op, conv_mod.conv2d_dw_op = fwd_op, dx_op, dw_op
+        attn_mod._flash_forward, ssd_mod._ssd_forward = flash_forward, ssd_forward
+        self.backend_log.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.backend_log.__exit__(*exc)
+        for m, name, fn in self._saved:
+            setattr(m, name, fn)
+
+    def conv(self) -> tuple:
+        """(K1's, K2's, K3's) shapes over both conv routes."""
+        log = self.backend_log
+        return (self.fwd + log.fwd, self.dx + log.bwd, self.dw + log.bwd)
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(ks, dev) -> tuple:
+    """Phase 29: the four examples of the port, each module's ``main``
+    run in process with ``--device cuda`` at its reference's defaults
+    (``EXAMPLES``), all inside one profiler trace and ``KernelShapes``.
+    Each example's own assertions are the run's checks; its output goes
+    into its record (the last ``EXAMPLE_TAIL`` lines).  K1-K5 each
+    launched, each wrapper's count equal to the trace's and to the calls
+    ``KernelShapes`` saw (an empty conv launches nothing); then each
+    kernel against its plain version at every shape the examples gave
+    it.  Returns (the records, {kernel: (shape records, trace)})."""
+    import io
+    import traceback
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.backends import get_backend
+
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    recs, by_example = [], {}
+    pad = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            KernelShapes(get_backend("cuda")) as shapes:
+        for _ in range(TRACE_PAD_KERNELS):  # a trace after others can lose its first records
+            pad.add_(1)
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        t_run = time.perf_counter()
+        for name, argv in EXAMPLES:
+            mod = load_example(name)
+            before = read_counts(ks)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    out = mod.main(["--device", "cuda", *argv])
+                torch.cuda.synchronize()
+            except (Exception, SystemExit):
+                fail(f"examples {name}: {traceback.format_exc()}\n"
+                     f"its output: {buf.getvalue()[-4000:]}")
+            after = read_counts(ks)
+            by_example[name] = (out, time.perf_counter() - t0,
+                                {k: after[k] - before[k] for k in after},
+                                buf.getvalue().splitlines()[-EXAMPLE_TAIL:])
+        run_s = time.perf_counter() - t_run
+        counts = read_counts(ks)
+    t0 = time.perf_counter()
+    trace = device_trace(prof, run_s)
+    trace_read_s = time.perf_counter() - t0
+    del prof
+    fwd, dx, dw = shapes.conv()
+    seen = {"conv2d_fwd": nonempty(fwd), "conv2d_dx": nonempty(dx),
+            "conv2d_dw": nonempty(dw), "flash_attention": sum(shapes.attn.values()),
+            "ssd": sum(shapes.ssd.values())}
+    for kind in SYMBOLS:
+        if counts[kind] == 0:
+            fail(f"examples: the {kind} kernel was never launched")
+        if trace["kernels"][kind]["launches"] != counts[kind]:
+            fail(f"examples: the trace holds {trace['kernels'][kind]['launches']} {kind} "
+                 f"launches, the wrapper counted {counts[kind]}")
+        if seen[kind] != counts[kind]:
+            fail(f"examples: the {kind} calls seen stand for {seen[kind]} launches, the "
+                 f"wrapper counted {counts[kind]}")
+
+    def rec(example, **numbers):
+        _, run_s_, launches, tail = by_example[example]
+        return {"phase": "examples", "example": example, **numbers,
+                "run_s": run_s_, "launches": launches, "output_tail": tail}
+
+    qs, _, _, _ = by_example["quickstart_torch"]
+    recs.append(rec("quickstart_torch", local_s=qs["local_s"],
+                    distributed_s=qs["distributed_s"],
+                    final_acc_local=qs["final_acc_local"],
+                    final_acc_distributed=qs["final_acc_distributed"], drift=qs["drift"],
+                    comm_mib=qs["comm_mib"], probe_times=qs["probe_times"],
+                    shares=qs["shares"], losses_local=qs["losses_local"]))
+    hc, _, _, _ = by_example["hetero_cluster_torch"]
+    recs.append(rec("hetero_cluster_torch", **{k: hc[k] for k in (
+        "single_ms", "balanced_ms", "equal_ms", "gain", "barrier_ms", "pipelined_ms",
+        "pipeline_gain", "mixed_ms", "probe_times", "shares", "kernels", "mixed_backends",
+        "mixed_probe_times", "mixed_kernels")}))
+    sb, _, _, _ = by_example["serve_batched_torch"]
+    recs.append(rec("serve_batched_torch", regimes=sb))
+    tl, _, _, _ = by_example["train_lm_torch"]
+    recs.append(rec("train_lm_torch", **{k: tl[k] for k in (
+        "params_m", "steps", "batch", "seq", "s_per_step", "tokens_per_s", "first_loss",
+        "last_loss", "logged_losses", "logged_evals", "restored_eval_loss")}))
+    for r in recs:
+        emit(r)
+    emit({"phase": "examples", "example": "launches", "launches": counts, "trace": trace,
+          "run_s": run_s, "trace_read_s": trace_read_s,
+          "by_example": {n: v[2] for n, v in by_example.items()}})
+    t0 = time.perf_counter()
+    shape_recs = {
+        "conv2d_fwd": path_shapes(ks, "conv2d_fwd", dev, fwd, "main_path_shape", "examples"),
+        "conv2d_dx": path_shapes(ks, "conv2d_dx", dev, dx, "main_path_shape", "examples"),
+        "conv2d_dw": path_shapes(ks, "conv2d_dw", dev, dw, "main_path_shape", "examples"),
+        "flash_attention": attn_path_shapes(ks, dev, shapes.attn, "examples"),
+        "ssd": ssd_path_shapes(ks, dev, shapes.ssd, "examples"),
+    }
+    emit({"phase": "examples", "example": "shapes",
+          "shapes_checked": sum(len(rs) for rs in shape_recs.values()),
+          "shapes_s": time.perf_counter() - t0})
+    return recs, {kind: (rs, trace) for kind, rs in shape_recs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
@@ -4194,6 +4440,10 @@ def main() -> int:
     for r in dryrun_records(mt_rec):
         emit(r)
 
+    mark("29")
+    # -- 29. the port's four examples on the card ------------------------------
+    _, ex_runs = examples_phase(ks, dev)
+
     kernels = [
         entry("conv2d_fwd", "src/repro_torch/kernels/csrc/conv2d_fwd.cu",
               "src/repro/kernels/conv2d.py:78",
@@ -4201,32 +4451,38 @@ def main() -> int:
                "train": (train_recs["conv2d_fwd"], train_trace),
                "hierarchy": (hier_recs["conv2d_fwd"], hier_trace),
                "axes": (axes_recs["conv2d_fwd"], axes_trace),
-               "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace)},
+               "mesh_cnn": (mc_recs["conv2d_fwd"], mc_trace),
+               "examples": ex_runs["conv2d_fwd"]},
               untraced=process_recs["conv2d_fwd"]),
         entry("conv2d_dx", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:94",
               {"train": (train_recs["conv2d_dx"], train_trace),
                "hierarchy": (hier_recs["conv2d_dx"], hier_trace),
                "axes": (axes_recs["conv2d_dx"], axes_trace),
-               "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace)},
+               "mesh_cnn": (mc_recs["conv2d_dx"], mc_trace),
+               "examples": ex_runs["conv2d_dx"]},
               untraced=process_recs["conv2d_dx"]),
         entry("conv2d_dw", "src/repro_torch/kernels/csrc/conv2d_bwd.cu",
               "src/repro/kernels/conv2d.py:138",
               {"train": (train_recs["conv2d_dw"], train_trace),
                "hierarchy": (hier_recs["conv2d_dw"], hier_trace),
                "axes": (axes_recs["conv2d_dw"], axes_trace),
-               "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace)},
+               "mesh_cnn": (mc_recs["conv2d_dw"], mc_trace),
+               "examples": ex_runs["conv2d_dw"]},
               untraced=process_recs["conv2d_dw"]),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:97",
               {"lm_serve": (attn_recs, lm_trace), "lm_train": (train_attn_recs,
                                                                train_lm_trace),
-               **zoo_runs, "mesh_train": (mt_attn, mt_trace)}, dtype=torch.bfloat16),
+               **zoo_runs, "mesh_train": (mt_attn, mt_trace),
+               "examples": ex_runs["flash_attention"]}, dtype=torch.bfloat16,
+              path_dtypes={"examples": torch.float32}),
         entry("ssd", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
               "src/repro/kernels/ssd.py:75",
               {"lm_serve": (ssd_recs, lm_trace),
                "lm_train": (train_ssd_recs, train_lm_trace),
-               "mesh_train": (mt_ssd, mt_trace)}, dtype=torch.float32),
+               "mesh_train": (mt_ssd, mt_trace),
+               "examples": ex_runs["ssd"]}, dtype=torch.float32),
     ]
     # the cuda slave processes' own launches (outside this process's
     # counters and traces), by run

@@ -1,6 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/, and nothing in
-chip_smoke.py, imports jax or the JAX package ``repro``, statically or
-at run time."""
+"""The port stands alone: nothing under src/repro_torch/, nothing in
+chip_smoke.py and no example of the port (examples/*_torch.py) imports
+jax or the JAX package ``repro``, statically or at run time."""
 import ast
 import os
 import subprocess
@@ -11,8 +11,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-# the port's modules, and chip_smoke.py, which drives the port on the card
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's modules, chip_smoke.py, which drives the port on the card,
+# and the port's examples
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _imported_modules(path: Path):
@@ -30,6 +32,9 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_modules():
     assert len(FILES) >= 15
+    assert {p.stem for p in EXAMPLES} >= {
+        "quickstart_torch", "hetero_cluster_torch", "serve_batched_torch",
+        "train_lm_torch", "serve_cluster_torch"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -76,4 +81,22 @@ def test_entry_points_load_no_jax_and_no_repro_at_run_time():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_examples_load_no_jax_and_no_repro_at_run_time():
+    """Each example of the port, imported as a module (its imports run,
+    its ``main`` does not), leaves neither jax nor ``repro`` loaded."""
+    code = (
+        "import importlib.util, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)], env=env,
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
