@@ -1,0 +1,9 @@
+"""copy_ms_per_request.serve: the card's host<->device memcpy time in
+the traced window, per answered request."""
+from portbench import readers
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return readers.per_unit_ms(run, run.trace["copy_s"], "answered_ok")
