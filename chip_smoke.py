@@ -103,8 +103,7 @@ Phases, each printing JSON lines (``{"phase": ...}``):
    batch 4 x 4,096 tokens in 2 microbatches, adam at lr 1e-3, cosine,
    remat full, 4 steps untraced (losses, s/step over steps 2-4,
    tokens/s, peak memory), then 1 step from the same seed in a profiler
-   trace with CPU activity (K4's and K5's traced ms, the vjps' device ms
-   from their ``record_function`` ranges, the busy share).  Every loss,
+   trace with CPU activity (K4's and K5's traced ms, the busy share).  Every loss,
    aux and grad_norm finite; K4 and K5 128 launches a step each (2
    microbatches x 32 layers x the forward and the remat recompute), the
    trace's equal to the wrappers'; then ``lm_train_check``: step 1 in
@@ -365,8 +364,6 @@ SYMBOLS = {
     "ssd": ("ssd_fwd_kernel", "ssd_prefix_kernel", "ssd_out_kernel"),
 }
 CONV_KINDS = ("conv2d_fwd", "conv2d_dx", "conv2d_dw")
-# the profiler ranges around the backward of K4 and K5 (plain torch)
-VJP_RANGES = ("flash_attention_vjp", "ssd_vjp")
 # lm_train: hymba-1.5b at full width, bf16, adam at lr 1e-3, cosine,
 # remat full; 4 steps of batch 4 x 4,096 tokens in 2 microbatches, so K4
 # and K5 run 2 x 32 x 2 = 128 times a step (microbatches x layers x the
@@ -588,8 +585,7 @@ def bound(flops, nbytes, dtype):
 def device_trace(prof, window_s: float) -> dict:
     """The card's activity in a profiler trace: each wrapper's kernel
     launches and summed time (``SYMBOLS``), and the share of
-    ``window_s`` in which any kernel or copy ran (overlaps counted once;
-    the ranges ``VJP_RANGES`` mark on the card's timeline are no work).
+    ``window_s`` in which any kernel or copy ran (overlaps counted once).
     Read from the profiler's raw records, each distinct name matched
     against ``SYMBOLS`` once: building ``prof.events()``' objects for a
     trace of ~10^6 kernels takes minutes."""
@@ -602,8 +598,6 @@ def device_trace(prof, window_s: float) -> dict:
         if e.device_type() != cuda:
             continue
         name = e.name()
-        if name in VJP_RANGES:
-            continue
         t0 = e.start_ns()
         t1 = t0 + e.duration_ns()
         spans.append((t0, t1))
@@ -1948,20 +1942,6 @@ def check_grad_ssd(ks, dev, b, s, h, g, p, n, chunk, dtype):
     return rec
 
 
-def vjp_device_ms(prof) -> dict:
-    """Device time of the kernels each ``VJP_RANGES`` range launched
-    (profiled with CPU activity), and the ranges' count."""
-    out = {name: {"calls": 0, "ms": 0.0} for name in VJP_RANGES}
-    for e in prof.events():
-        if e.name in VJP_RANGES and e.device_type == torch.autograd.DeviceType.CPU:
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = e.cuda_time_total
-            out[e.name]["calls"] += 1
-            out[e.name]["ms"] += total / 1e3
-    return out
-
-
 def lm_train(ks, dev):
     """The port's ``launch/train.py`` (``train``) on hymba-1.5b at full
     width (``full=True``: the published config in bf16, remat full):
@@ -1969,8 +1949,8 @@ def lm_train(ks, dev):
     ``TRAIN_BATCH`` x ``TRAIN_SEQ`` in ``TRAIN_ACCUM`` microbatches,
     untraced (losses, s/step, tokens/s, peak memory); then
     ``TRAIN_TRACED_STEPS`` steps from the same seed inside a profiler
-    trace with CPU activity (K4's and K5's traced time, the vjps' device
-    time, the busy share).  Every loss, aux and grad_norm finite; each
+    trace with CPU activity (K4's and K5's traced time, the busy
+    share).  Every loss, aux and grad_norm finite; each
     run's K4 and K5 launches 128 a step, and the trace's equal to the
     wrappers'.  Returns (the record, K4's and K5's train shapes and the
     traced run's launch counts, the trace)."""
@@ -2022,7 +2002,6 @@ def lm_train(ks, dev):
     t0 = time.perf_counter()
     # the busy share over the steps, not the params' draw before them
     trace = device_trace(prof, traced[-1]["elapsed_s"])
-    vjps = vjp_device_ms(prof)
     del prof
     trace_read_s = time.perf_counter() - t0
     for kind in kinds:
@@ -2037,10 +2016,6 @@ def lm_train(ks, dev):
                  for a, b in zip(traced, recs)]
     if max(rerun_rel) > 1e-3:
         fail(f"lm_train: the traced run's losses {traced} differ from the first run's")
-    for name, v in vjps.items():
-        if v["calls"] != per_step // 2 * TRAIN_TRACED_STEPS:
-            fail(f"lm_train: {v['calls']} {name} ranges in the trace, want "
-                 f"{per_step // 2} a step")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n = TRAIN_TRACED_STEPS
     rec = {"phase": "lm_train", "arch": TRAIN_ARCH, "full": True, "dtype": cfg.dtype,
@@ -2062,11 +2037,8 @@ def lm_train(ks, dev):
                               "busy share is a lower bound",
                       "k4_ms_per_step": trace["kernels"]["flash_attention"]["ms"] / n,
                       "k5_ms_per_step": trace["kernels"]["ssd"]["ms"] / n,
-                      "flash_attention_vjp_ms_per_step": vjps["flash_attention_vjp"]["ms"] / n,
-                      "ssd_vjp_ms_per_step": vjps["ssd_vjp"]["ms"] / n,
                       "busy_ms_per_step": trace["busy_ms"] / n,
-                      "device_events_per_step": trace["device_events"] / n,
-                      "vjps": "plain torch, no TPU kernel"}}
+                      "device_events_per_step": trace["device_events"] / n}}
     b = TRAIN_BATCH // TRAIN_ACCUM
     attn_shape = (b, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
                   cfg.resolved_head_dim, True, cfg.sliding_window, cfg.compute_dtype)

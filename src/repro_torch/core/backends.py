@@ -34,6 +34,8 @@ from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
+
 
 class ConvBackend:
     """The per-device compute contract of the distributed conv engine."""
@@ -254,6 +256,17 @@ def _host_tensor(a):
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
+def drain(t) -> None:
+    """Waits for the work queued on the card's current stream before
+    tensor ``t`` is copied to the host.  The copy would wait anyway;
+    waiting first leaves the copy's span the copy alone.  A CPU tensor
+    is never waited on."""
+    if t.is_cuda:
+        import torch
+
+        torch.cuda.current_stream(t.device).synchronize()
+
+
 def _cuda_device(index: int = 0):
     """``torch.device("cuda", index)``, or a clear error when there is no
     card: a device asked to run on CUDA never falls back to the CPU."""
@@ -275,7 +288,14 @@ class CudaBackend(ConvBackend):
     The contract is numpy in and out, so every call copies its operands
     to the card and its results back.  The kernels are built here, at
     construction, so a missing ``nvcc`` or a failed build raises before
-    any slave thread starts."""
+    any slave thread starts.
+
+    While a torch profiler records, each call is three spans
+    (``core/spans.py``): ``cuda.to_card`` (the operands' bytes by name,
+    ``x``, ``w``, ``g``), ``cuda.compute`` (the launches up to the
+    stream's drain) and ``cuda.to_host`` (``y``, or ``dx`` and ``dw``).
+    The drain runs traced or not: the copy back would wait for the
+    kernels anyway."""
 
     name = "cuda"
 
@@ -292,19 +312,29 @@ class CudaBackend(ConvBackend):
     def conv(self, x, w):
         from repro_torch.kernels.conv2d import conv2d
 
-        xt = _host_tensor(x).to(self.device)
-        wt = _host_tensor(w).to(self.device)
-        return conv2d(xt, wt).cpu().numpy()
+        with spans.span("cuda.to_card", {"x": 4 * x.size, "w": 4 * w.size}):
+            xt = _host_tensor(x).to(self.device)
+            wt = _host_tensor(w).to(self.device)
+        with spans.span("cuda.compute"):
+            y = conv2d(xt, wt)
+            drain(y)
+        with spans.span("cuda.to_host", {"y": y.nbytes}):
+            return y.cpu().numpy()
 
     def conv_vjp(self, x, w, g):
         from repro_torch.kernels.conv2d import conv2d_dw, conv2d_dx
 
-        xt = _host_tensor(x).to(self.device)
-        wt = _host_tensor(w).to(self.device)
-        gt = _host_tensor(g).to(self.device)
-        dx = conv2d_dx(gt, wt)
-        dw = conv2d_dw(xt, gt, wt.shape[0], wt.shape[1])
-        return dx.cpu().numpy(), dw.cpu().numpy()
+        with spans.span("cuda.to_card", {"x": 4 * x.size, "w": 4 * w.size,
+                                         "g": 4 * g.size}):
+            xt = _host_tensor(x).to(self.device)
+            wt = _host_tensor(w).to(self.device)
+            gt = _host_tensor(g).to(self.device)
+        with spans.span("cuda.compute"):
+            dx = conv2d_dx(gt, wt)
+            dw = conv2d_dw(xt, gt, wt.shape[0], wt.shape[1])
+            drain(dw)
+        with spans.span("cuda.to_host", {"dx": dx.nbytes, "dw": dw.nbytes}):
+            return dx.cpu().numpy(), dw.cpu().numpy()
 
 
 @register_backend("torch")

@@ -76,6 +76,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.backends import (
     get_backend,
     probe_conv_time,
@@ -1088,6 +1089,7 @@ class HeteroCluster:
             self._write_op(sock, ("sconv", (x[:, lo:hi], ws, pt, pb)))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "conv", self._seq_issued, x, plan.w, None, now,
@@ -1109,6 +1111,7 @@ class HeteroCluster:
             self._write_op(sock, ("conv", (x, ws)))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "conv", self._seq_issued, x, plan.shards[0], None, now,
@@ -1133,6 +1136,7 @@ class HeteroCluster:
             self._write_op(sock, ("conv", (x[r0:r1], ws)))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "conv", self._seq_issued, x, plan.w, None, now,
@@ -1216,6 +1220,7 @@ class HeteroCluster:
             )
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         r0, r1 = plan.rows[0]
         return scheduler.Pending(
@@ -1240,6 +1245,7 @@ class HeteroCluster:
             self._write_op(sock, ("bwd", (x[r0:r1], ws, g[r0:r1])))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         r0, r1 = rows[0]
         return scheduler.Pending(
@@ -1261,6 +1267,7 @@ class HeteroCluster:
             self._write_op(sock, ("bwd", (x, ws, gs)))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "bwd", self._seq_issued, x, plan.shards[0], g_shards[0], now,
@@ -1397,7 +1404,9 @@ class HeteroCluster:
         if self.slowdowns[0] > 1.0:
             # reprolint: allow=clock-injection -- slowdown emulation IS a real delay: it stretches measured compute to the emulated device's speed
             time.sleep(el * (self.slowdowns[0] - 1.0))
-        self.timing.recompute_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.timing.recompute_s += t1 - t0
+        spans.record("cluster.recover", t0, t1)
         return out
 
     def _check_order(self, p: scheduler.Pending, op: str):
@@ -1420,20 +1429,27 @@ class HeteroCluster:
         if self.slowdowns[0] > 1.0:
             # reprolint: allow=clock-injection -- slowdown emulation IS a real delay: it stretches measured compute to the emulated device's speed
             time.sleep(el * (self.slowdowns[0] - 1.0))
-        self.timing.master_conv_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.timing.master_conv_s += t1 - t0
+        spans.record("cluster.master_shard", t0, t1)
         return out
 
     def _account_gather(self, p: scheduler.Pending, t0, t_wait, t1):
         self.timing.conv_s += t1 - t0
         self.timing.gather_wait_s += t1 - t_wait
+        spans.record("cluster.gather_wait", t_wait, t1)
         # in-flight window minus the time the master actually blocked:
         # the comm/compute overlap the pipeline buys
         self.timing.overlap_s += max(0.0, (t_wait - p.t_issued))
 
-    def _master_comp(self, f, y: np.ndarray) -> np.ndarray:
+    def _master_comp(self, f, *args):
+        """``f(*args)``: a master-only stage, timed into
+        ``LayerTiming.comp_s`` (the master's non-conv duty)."""
         t0 = time.perf_counter()
-        out = f(y)
-        self.timing.comp_s += time.perf_counter() - t0
+        out = f(*args)
+        t1 = time.perf_counter()
+        self.timing.comp_s += t1 - t0
+        spans.record("cluster.master_stage", t0, t1)
         return out
 
     # -- the schedules (core/cluster/scheduler.py) ------------------------

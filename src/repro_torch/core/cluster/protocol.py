@@ -68,6 +68,7 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.cluster.codec import WeightRef
 
 TRAIN_OVER = "trainOver"
@@ -134,7 +135,13 @@ def slave_loop(endpoint, slowdown: float, backend_name: str, device: int):
     inputs/kernels, convolve with this device's backend, write outputs.
     No per-op ack: the master may queue several ops ahead (the pipeline);
     results stream back in issue order.  Returns on "trainOver" or when
-    the master's side of the link goes away (EOF)."""
+    the master's side of the link goes away (EOF).
+
+    Each op's compute, the emulated slowdown's sleep left out, is the
+    span ``device.shard`` (labels ``device``, ``backend``, ``op``) while
+    a torch profiler records: in the master's process for an in-process
+    slave; in a slave process (tcp, shm) in that process's own session,
+    which nothing reads yet."""
     backend = None
     cached_w = {}  # last kernel shard per op: pipelined microbatches after
     #                the first send w=None instead of retransmitting it
@@ -185,10 +192,13 @@ def slave_loop(endpoint, slowdown: float, backend_name: str, device: int):
                 out = strip_conv_vjp(backend, xh, w, g, pt, pb)
             else:  # pragma: no cover
                 raise ValueError(f"unknown op {op}")
-            elapsed = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            if spans.recording():
+                spans.record("device.shard", t0, t1, device=device,
+                             backend=backend_name, op=op)
             if slowdown > 1.0:
                 # reprolint: allow=clock-injection -- slowdown emulation IS a real delay: it stretches measured compute to the emulated device's speed
-                time.sleep(elapsed * (slowdown - 1.0))
+                time.sleep((t1 - t0) * (slowdown - 1.0))
         except Exception:
             endpoint.send(SlaveError(device, traceback.format_exc()))
             continue

@@ -28,11 +28,11 @@ them as methods.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.cluster.plans import LayerPlan, plan_conv
 
 
@@ -319,9 +319,7 @@ def conv_train_chain(
         f = between[k]
         if f is None:
             return y
-        t0 = time.perf_counter()
-        z, vjp = f(y)
-        cluster.timing.comp_s += time.perf_counter() - t0
+        z, vjp = cluster._master_comp(f, y)
         stash_vjp[k][i] = vjp
         return z
 
@@ -330,10 +328,7 @@ def conv_train_chain(
         vjp = stash_vjp[k][i]
         if vjp is None:
             return g
-        t0 = time.perf_counter()
-        gy = vjp(g)
-        cluster.timing.comp_s += time.perf_counter() - t0
-        return gy
+        return cluster._master_comp(vjp, g)
 
     # ---- forward phases: layer k's scatters interleave with k-1's
     # gathers (and the between stages between them)
@@ -357,9 +352,7 @@ def conv_train_chain(
     cur = []
     for i in range(n):
         z = fwd_finish(L - 1, i, pend[i])
-        t0 = time.perf_counter()
-        head_aux[i], gz = head(z, i)
-        cluster.timing.comp_s += time.perf_counter() - t0
+        head_aux[i], gz = cluster._master_comp(head, z, i)
         gy = bwd_through(L - 1, i, np.asarray(gz, np.float32))
         cur.append(
             cluster._scatter_bwd_planned(
@@ -531,4 +524,6 @@ def conv_train_step(
     res = conv_train_chain(cluster, x, layer_weights, between=between, head=head)
     if update is None:
         return list(layer_weights), res
-    return [update(w, d) for w, d in zip(layer_weights, res.dw)], res
+    with spans.span("step.update_host"):
+        new_weights = [update(w, d) for w, d in zip(layer_weights, res.dw)]
+    return new_weights, res

@@ -263,6 +263,5 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        with torch.profiler.record_function("flash_attention_vjp"):
-            dq, dk, dv = flash_attention_vjp(q, k, v, out, dout, ctx.causal, ctx.window)
+        dq, dk, dv = flash_attention_vjp(q, k, v, out, dout, ctx.causal, ctx.window)
         return dq, dk, dv, None, None

@@ -266,6 +266,5 @@ class SsdFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        with torch.profiler.record_function("ssd_vjp"):
-            grads = ssd_vjp(*ctx.saved_tensors, ctx.chunk, dy, dstate)
+        grads = ssd_vjp(*ctx.saved_tensors, ctx.chunk, dy, dstate)
         return (*grads, None)

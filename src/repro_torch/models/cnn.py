@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CNNConfig
+from repro_torch.core import spans
+from repro_torch.core.backends import drain
 from repro_torch.layers.conv import apply_conv, conv_axes, init_conv, max_pool
 from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
 from repro_torch.layers.norm import local_response_norm
@@ -136,6 +138,13 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
     Returns ``step(params, images, labels) -> (new_params, loss, acc)``
     applying plain SGD with ``lr`` to every parameter; params are
     tensors on ``device``, images and labels numpy arrays or tensors.
+
+    While a torch profiler records, each call is the span ``step``
+    (``core/spans.py``), and every move between the cluster's numpy and
+    ``device`` a span with its bytes: ``step.to_card``/``step.to_host``
+    for the activations and gradients of the stages and the head,
+    ``step.kernels_to_host``/``step.kernels_to_card`` for the conv
+    kernels around the cluster's step.
     """
     dev = torch.device(device)
     s = cfg.pool_stride
@@ -143,6 +152,14 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
     def _tensor(a) -> torch.Tensor:
         a = np.ascontiguousarray(a, np.float32)
         return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
+
+    def _moved(name, move, a):
+        """``move(a)`` (``_tensor`` or ``_host``), the span ``name``
+        with the bytes of ``a``."""
+        if isinstance(a, torch.Tensor):
+            drain(a)
+        with spans.span(name, a.nbytes):
+            return move(a)
 
     def _stage(y, b):
         """The master-only block after each conv: +bias, ReLU, LRN, pool."""
@@ -198,8 +215,15 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
             torch.cuda.synchronize(dev)
 
     def step(params, images, labels):
-        images = (_host(images) if isinstance(images, torch.Tensor)
-                  else np.asarray(images, np.float32))
+        with spans.span("step"):
+            return _step(params, images, labels)
+
+    def _step(params, images, labels):
+        if isinstance(images, torch.Tensor):
+            drain(images)
+            images = _host(images)
+        else:
+            images = np.asarray(images, np.float32)
         labels = torch.as_tensor(labels).long().to(dev)
         batch = images.shape[0]
         slices = cluster.microbatch_slices(batch)
@@ -211,29 +235,31 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
 
         def make_between(k, bias):
             def f(y):
-                y = _tensor(y)
+                y = _moved("step.to_card", _tensor, y)
                 z = _stage_fwd(y, bias)
 
                 def pull(gz):
-                    gy, gb = _stage_bwd(y, bias, _tensor(gz))
+                    gy, gb = _stage_bwd(y, bias, _moved("step.to_card", _tensor, gz))
                     db[k] = gb if db[k] is None else db[k] + gb
-                    return _host(gy)
+                    return _moved("step.to_host", _host, gy)
 
-                return _host(z), pull
+                return _moved("step.to_host", _host, z), pull
             return f
 
         def head(z, i):
             loss_i, correct_i, gz, gfc = _head_both(
-                _tensor(z), params["fc"], labels[slices[i]], float(batch))
+                _moved("step.to_card", _tensor, z), params["fc"], labels[slices[i]],
+                float(batch))
             fc_grad[0] = gfc if fc_grad[0] is None else {
                 k: fc_grad[0][k] + gfc[k] for k in gfc}
-            return (float(loss_i), float(correct_i)), _host(gz)
+            return (float(loss_i), float(correct_i)), _moved("step.to_host", _host, gz)
 
         between = [
             make_between(0, params["conv1"]["bias"]),
             make_between(1, params["conv2"]["bias"]),
         ]
-        kernels = [_host(params["conv1"]["kernel"]), _host(params["conv2"]["kernel"])]
+        kernels = [_moved("step.kernels_to_host", _host, params[k]["kernel"])
+                   for k in ("conv1", "conv2")]
         new_kernels, res = cluster.conv_train_step(
             images, kernels, between, head,
             update=lambda w, dw: w - lr * dw,
@@ -243,11 +269,11 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
         acc = float(sum(a[1] for a in res.head_aux)) / batch
         new_params = {
             "conv1": {
-                "kernel": _tensor(new_kernels[0]),
+                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[0]),
                 "bias": params["conv1"]["bias"] - lr * db[0],
             },
             "conv2": {
-                "kernel": _tensor(new_kernels[1]),
+                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[1]),
                 "bias": params["conv2"]["bias"] - lr * db[1],
             },
             "fc": {k: params["fc"][k] - lr * fc_grad[0][k] for k in params["fc"]},
