@@ -1106,6 +1106,15 @@ class WireLog:
             def _accept_slave(self, timeout_s):
                 chan, dev, meta = super()._accept_slave(timeout_s)
                 log.welcomed[dev] = time.perf_counter()
+                write = chan.write_to_slave
+
+                def probed(msg):
+                    # a training plan's layer probes write past _write_op
+                    if isinstance(msg, tuple) and msg[0] == "probe":
+                        log._raw(msg, "down")
+                    return write(msg)
+
+                chan.write_to_slave = probed
                 return chan, dev, meta
 
             def _write_op(self, sock, msg):
@@ -3360,21 +3369,26 @@ class ResolveLog:
         self.plans, self.real = plans, plans.resolve_mode
 
         def resolve_mode(cluster, x_shape, w_shape, override, op="conv",
-                         weights_cached=False):
+                         weights_cached=False, layer=None):
             memo = getattr(cluster, "_mode_cache", None)
             hit = memo is not None and (tuple(x_shape), tuple(w_shape), op,
-                                        bool(weights_cached)) in memo
-            pick = self.real(cluster, x_shape, w_shape, override, op, weights_cached)
+                                        bool(weights_cached), layer is not None) in memo
+            pick = self.real(cluster, x_shape, w_shape, override, op, weights_cached,
+                             layer=layer)
             if (override or cluster.partition) == "auto":
                 pred = plans.predict_partition_seconds(cluster, x_shape, w_shape, op,
-                                                       weights_cached=weights_cached)
+                                                       weights_cached=weights_cached,
+                                                       layer=layer)
+                times = cluster.probe_times if layer is None else layer.times
                 self.calls.append({
                     "layer": "conv1" if w_shape[2] == 3 else "conv2", "op": op,
                     "x": list(x_shape), "w": list(w_shape),
                     "weights_cached": bool(weights_cached), "pick": pick, "memo_hit": hit,
                     "predicted_s": pred, "ranked_first": ranked_first(pred),
-                    "state": {"probe_s": [float(t) for t in cluster.probe_times],
-                              "probe_flops": cluster.probe_flops,
+                    "state": {"probe_s": [float(t) for t in times],
+                              "probe_flops": (cluster.probe_flops if layer is None
+                                              else layer.flops),
+                              "layer_probe": layer is not None,
                               "comp_duty": cluster.comp_duty}})
             return pick
 
@@ -3403,11 +3417,14 @@ def thin_link_picks(calls, mbps) -> list:
             st = call["state"]
             c.probe_times, c.probe_flops, c.comp_duty = (
                 list(st["probe_s"]), st["probe_flops"], st["comp_duty"])
+            layer = (plans.LayerProbe(list(st["probe_s"]), st["probe_flops"])
+                     if st["layer_probe"] else None)
             c._mode_cache.clear()
             pick = plans.resolve_mode(c, tuple(call["x"]), tuple(call["w"]), None, call["op"],
-                                      call["weights_cached"])
+                                      call["weights_cached"], layer=layer)
             pred = plans.predict_partition_seconds(c, tuple(call["x"]), tuple(call["w"]),
-                                                   call["op"], call["weights_cached"])
+                                                   call["op"], call["weights_cached"],
+                                                   layer=layer)
             if pick != ranked_first(pred):
                 fail(f"axes auto at {mbps} Mbps: {call['layer']} picked {pick}, the "
                      f"predictor ranks {ranked_first(pred)} first: {pred}")

@@ -104,6 +104,18 @@ def _np_probe(*, slowdown: float = 1.0, **probe_kwargs) -> float:
     return probe_conv_time("numpy", slowdown=slowdown, **probe_kwargs)
 
 
+def _probe_flops(probe_kwargs: dict) -> float:
+    """The FLOPs of the reference convolution a probe times."""
+    return (
+        2.0
+        * probe_kwargs["batch"]
+        * probe_kwargs["image_size"] ** 2
+        * probe_kwargs["kernel_size"] ** 2
+        * probe_kwargs["in_channels"]
+        * probe_kwargs["num_kernels"]
+    )
+
+
 def _src_pythonpath() -> str:
     """The import root of this package, prepended to a slave subprocess's
     PYTHONPATH so ``-m repro_torch.core.cluster.protocol`` resolves without an
@@ -148,6 +160,13 @@ class HeteroCluster:
     ``conv_train_chain`` has observed master-only between/head work
     (``LayerTiming.comp_s`` vs ``master_conv_s``), ``shares_for`` inflates
     the master's probe time by ``1/(1-duty)`` automatically.
+
+    ``probe()`` times the reference convolution once for the cluster.
+    A training chain's plans read each layer's own probe instead
+    (``layer_probe``): a card's time of a shallow layer is mostly its
+    copies, of a deep one mostly its kernel, so one workload's ratio
+    mis-splits the other.  Times set by hand (``probe_times = [...]``)
+    are pinned: every plan then splits by them.
 
     ``partition`` picks the conv split axis: ``"kernel"`` (the paper,
     default), ``"spatial"`` (height strips + halo exchange — each slave
@@ -343,7 +362,7 @@ class HeteroCluster:
         self.threads: List[Optional[threading.Thread]] = []
         self.reaped: List[subprocess.Popen] = []  # evicted/killed, waited on
         self.failures: List[dict] = []  # {"device", "t_detected", "error"}
-        self.probe_times: Optional[List[float]] = None
+        self.probe_times = None  # the setter turns the per-layer table off
         self.probe_flops: Optional[float] = None  # flops of the probe workload
         self._probe_kwargs: Optional[dict] = None  # last probe() workload
         self.measured_bandwidths: List[Optional[float]] = [None] * n_cfg
@@ -788,10 +807,13 @@ class HeteroCluster:
         self._remove_slot(pos, kill=False)
 
     def _remove_slot(self, pos: int, *, kill: bool) -> None:
-        """Drop slot ``pos`` from every aligned membership list.  The
-        socket is marked lost FIRST so any plan that still names this
-        member routes its shards to the master's recovery path."""
+        """Drop slot ``pos`` from every aligned membership list and its
+        column from the per-layer probe table.  The socket is marked
+        lost FIRST so any plan that still names this member routes its
+        shards to the master's recovery path."""
         sock = self.sockets[pos]
+        for col in (self._layer_times or {}).values():
+            col.pop(self.slave_ids[pos], None)
         sock.lost = True
         proc, thread = self.procs[pos], self.threads[pos]
         if kill and proc is not None:
@@ -848,6 +870,22 @@ class HeteroCluster:
         return [self._registry[d] for d in plan.member_ids]
 
     # -- §4.1.1 pre-processing -------------------------------------------
+    @property
+    def probe_times(self) -> Optional[List[float]]:
+        """Each device's time of the cluster-wide reference convolution,
+        in device order: measured by ``probe()``, or set by hand.  Times
+        set by hand are pinned: every plan then splits by them, and no
+        layer is probed on its own (``layer_probe``)."""
+        return self._probe_times
+
+    @probe_times.setter
+    def probe_times(self, times: Optional[List[float]]) -> None:
+        """Pin the times: the per-layer table goes off."""
+        self._probe_times = times
+        # per layer geometry (the probe's kwargs as a sorted tuple): each
+        # member's time by device id (0 = the master); None = pinned
+        self._layer_times: Optional[Dict[tuple, Dict[int, float]]] = None
+
     def probe(self, **probe_kwargs) -> List[float]:
         """Every device runs the timed reference convolution on its OWN
         backend — sequential so the 1-core host's timings do not
@@ -884,24 +922,102 @@ class HeteroCluster:
                     self._bandwidth_overrides, self.measured_bandwidths
                 )
             ]
-        self.probe_times = [master_t] + [
+        self._probe_times = [master_t] + [
             slave_ts[s] for s in self.sockets if s in slave_ts
         ]
-        self.probe_flops = (
-            2.0
-            * probe_kwargs["batch"]
-            * probe_kwargs["image_size"] ** 2
-            * probe_kwargs["kernel_size"] ** 2
-            * probe_kwargs["in_channels"]
-            * probe_kwargs["num_kernels"]
-        )
+        self._layer_times = {}  # measured anew: every layer is probed anew
+        self.probe_flops = _probe_flops(probe_kwargs)
         self._probe_kwargs = dict(probe_kwargs)
         return self.probe_times
 
-    def _effective_times(self) -> List[float]:
-        """Probe times with the comp-aware master discount applied."""
-        assert self.probe_times is not None, "run probe() first"
-        times = self.probe_times
+    def _layer_probe_kwargs(self, x_shape, w_shape) -> Tuple[dict, tuple]:
+        """The reference convolution at one call's geometry (``x_shape``
+        ``(rows, H, W, Cin)``, ``w_shape`` ``(kh, kw, Cin, Cout)``) with
+        the repeats and seed ``probe()`` ran, and its key in the table."""
+        kw = dict(
+            image_size=int(x_shape[1]), in_channels=int(x_shape[3]),
+            kernel_size=int(w_shape[0]), num_kernels=int(w_shape[3]),
+            batch=int(x_shape[0]),
+        )
+        for k in ("repeats", "seed"):
+            if k in self._probe_kwargs:
+                kw[k] = self._probe_kwargs[k]
+        return kw, tuple(sorted(kw.items()))
+
+    def layer_probe_due(self, x_shape, w_shape) -> bool:
+        """Whether ``layer_probe`` would probe a device for this layer:
+        the table is on (``probe()`` measured the times, more than one
+        device) and lacks a member's time for the geometry."""
+        if self._layer_times is None or self.n_slaves == 0:
+            return False
+        _, key = self._layer_probe_kwargs(x_shape, w_shape)
+        col = self._layer_times.get(key, {})
+        return any(dev not in col for dev in [0] + self.slave_ids)
+
+    def layer_probe(self, x_shape, w_shape) -> Optional[plans.LayerProbe]:
+        """A training plan's Eq. 1 input for one conv layer: each
+        device's time of the §4.1.1 reference convolution at THIS
+        layer's geometry (one call's ``x_shape``, the layer's
+        ``w_shape``), in device order, and its FLOPs.  One device's
+        ratio to another's depends on the layer (a card's time of a
+        shallow layer is mostly copies, of a deep one mostly its
+        kernel), so the cluster-wide probe would mis-split most layers.
+
+        A member missing from the table for this geometry is probed now
+        with the ``probe`` op (the master on its own backend), one
+        device after another, and kept: later plans of the geometry
+        read the table.  None where the cluster-wide probe stays the
+        input: times pinned by hand, never probed, or no slave.
+
+        Raises:
+            RuntimeError: ops are in flight — a probe's answer would
+                come back behind their results on the FIFO links.
+        """
+        if self._layer_times is None or self.n_slaves == 0:
+            return None
+        kw, key = self._layer_probe_kwargs(x_shape, w_shape)
+        col = self._layer_times.setdefault(key, {})
+        missing = [dev for dev in [0] + self.slave_ids if dev not in col]
+        if missing and self._seq_issued != self._seq_gathered:
+            raise RuntimeError(
+                "a layer probe needs idle links: gather the ops in flight "
+                f"(issued {self._seq_issued}, gathered {self._seq_gathered})"
+            )
+        geometry = {k: kw[k] for k in (
+            "image_size", "in_channels", "kernel_size", "num_kernels", "batch"
+        )}
+        for dev in missing:
+            t0 = time.perf_counter()
+            if dev == 0:
+                backend = self.backends[0]
+                col[0] = probe_conv_time(
+                    self._master_backend, slowdown=self.slowdowns[0], **kw
+                )
+            else:
+                if dev not in self.slave_ids:
+                    continue  # lost while an earlier member was probed
+                pos = self.slave_ids.index(dev)
+                sock, backend = self.sockets[pos], self.backends[pos + 1]
+                try:
+                    sock.write_to_slave(("probe", kw))
+                    col[dev] = self._check_result(sock.read_on_master())
+                except SlaveLost as e:
+                    self._on_slave_lost(sock, e)
+                    continue
+            spans.record("cluster.layer_probe", t0, time.perf_counter(),
+                         device=dev, backend=backend, **geometry)
+        return plans.LayerProbe(
+            [col[0]] + [col[dev] for dev in self.slave_ids], _probe_flops(kw)
+        )
+
+    def _effective_times(
+        self, layer: Optional[plans.LayerProbe] = None
+    ) -> List[float]:
+        """Probe times (the layer's own where ``layer`` is given) with
+        the comp-aware master discount applied."""
+        if layer is None:
+            assert self.probe_times is not None, "run probe() first"
+        times = self.probe_times if layer is None else layer.times
         if self.comp_aware and self.comp_duty > 0.0:
             times = effective_times(
                 times, comp_duties={0: self.comp_duty}
@@ -914,21 +1030,24 @@ class HeteroCluster:
         *,
         unit_bytes: float = 0.0,
         layer_flops: Optional[float] = None,
+        layer: Optional[plans.LayerProbe] = None,
     ) -> np.ndarray:
-        """Eq. 1 unit counts (kernels or rows) from the probe times; with
+        """Eq. 1 unit counts (kernels or rows) from the probe times — the
+        cluster-wide probe's, or ``layer``'s (``layer_probe``); with
         ``comp_aware`` the master's measured non-conv duty discounts its
         share.  When the layer's wire cost is known (``unit_bytes`` per
         unit, ``layer_flops`` to scale probe times to this layer) and the
         links are finite, each slave's comm term joins its compute term —
         the comm-extended Eq. 1 (partitioner.effective_times)."""
-        times = self._effective_times()
+        times = self._effective_times(layer)
+        probe_flops = self.probe_flops if layer is None else layer.flops
         if (
             unit_bytes > 0.0
             and layer_flops
-            and self.probe_flops
+            and probe_flops
             and any(bw is not None for bw in self.bandwidths)
         ):
-            scale = layer_flops / self.probe_flops
+            scale = layer_flops / probe_flops
             wire = [0.0] + [
                 float(num_kernels) * unit_bytes if bw is not None else 0.0
                 for bw in self.bandwidths

@@ -10,16 +10,32 @@ geometry, batch-row ranges, per-unit wire bytes, the wall-clock
 predictor and the axis resolver — over a duck-typed ``cluster`` that
 supplies device state (``_effective_times``, ``shares_for``,
 ``bandwidths``, ``probe_flops``, ``_wire_itemsize``, ``partition``,
-``partition_choices``).  No transport, no threads, numpy only.
+``partition_choices``).  No transport, no threads, numpy only; each
+plan is a span (``core/spans.py``) while a profiler records.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
+
 PARTITION_MODES = ("kernel", "spatial", "batch", "auto")
+# the FLOPs of what a plan governs, in forward passes of the layer: the
+# backward (dX + dW) costs ~2x the forward's
+FLOPS_MULT = {"conv": 1.0, "bwd": 2.0, "train": 3.0}
+
+
+class LayerProbe(NamedTuple):
+    """One conv layer's Eq. 1 input (``HeteroCluster.layer_probe``):
+    each device's time of the reference convolution at the layer's own
+    geometry, in device order, and that convolution's FLOPs."""
+
+    times: List[float]
+    flops: float
 
 
 class BoundedDict(dict):
@@ -182,7 +198,7 @@ def unit_bytes(
 
 def predict_partition_seconds(
     cluster, x_shape, w_shape, op: str = "conv",
-    weights_cached: bool = False,
+    weights_cached: bool = False, layer: Optional[LayerProbe] = None,
 ) -> Dict[str, float]:
     """Predicted per-layer wall-clock of each partition axis: every
     slave's wire bytes over its OWN link plus its balanced compute
@@ -200,7 +216,9 @@ def predict_partition_seconds(
     at the grads itemsize, so ``grads=topk`` + error feedback
     discounts the all-reduce per slave) and the versioned weight
     cache (``weights_cached=True`` zeroes the kernel-shipping terms,
-    which makes batch's replica broadcast nearly free after step 1)."""
+    which makes batch's replica broadcast nearly free after step 1).
+    ``layer``: the layer's own probe, in place of the cluster-wide
+    one."""
     b, h, wd, cin = x_shape
     kh, kw, _, cout = w_shape
     item = cluster._wire_itemsize
@@ -211,11 +229,11 @@ def predict_partition_seconds(
     w_e = float(kh * kw * cin * cout)
     x_b, y_b, w_b = x_e * item, y_e * item, w_e * item
     w_ship = 0.0 if weights_cached else w_e * item_w
-    times = cluster._effective_times()
+    times = cluster._effective_times(layer)
     layer_flops = 2.0 * b * h * wd * kh * kw * cin * cout
-    # the backward (dX + dW) costs ~2x the forward's flops
-    flops_mult = {"conv": 1.0, "bwd": 2.0, "train": 3.0}[op]
-    scale = (layer_flops / cluster.probe_flops) if cluster.probe_flops else None
+    flops_mult = FLOPS_MULT[op]
+    probe_flops = cluster.probe_flops if layer is None else layer.flops
+    scale = (layer_flops / probe_flops) if probe_flops else None
     out: Dict[str, float] = {}
     for mode in ("kernel", "spatial", "batch"):
         n_units = {"kernel": cout, "spatial": h, "batch": b}[mode]
@@ -227,6 +245,7 @@ def predict_partition_seconds(
                 w_cached=weights_cached,
             ),
             layer_flops=flops_mult * layer_flops,
+            layer=layer,
         )
         worst = 0.0
         for i, c in enumerate(counts):
@@ -281,7 +300,7 @@ def predict_partition_seconds(
 
 def resolve_mode(
     cluster, x_shape, w_shape, override: Optional[str], op: str = "conv",
-    weights_cached: bool = False,
+    weights_cached: bool = False, layer: Optional[LayerProbe] = None,
 ) -> str:
     """The partition axis for one layer; ``"auto"`` resolves against
     the predicted wall-clock of ``op`` and records its pick in
@@ -294,7 +313,8 @@ def resolve_mode(
     cluster's bounded ``_mode_cache`` memo so repeated slab sizes skip
     the predictor and the caches stay bounded.  Ties break toward the
     paper's order (kernel, then spatial, then batch): a challenger
-    axis must be strictly faster to displace the incumbent."""
+    axis must be strictly faster to displace the incumbent.  ``layer``:
+    the layer's own probe (``predict_partition_seconds``)."""
     mode = override or cluster.partition
     if mode not in PARTITION_MODES:
         raise ValueError(
@@ -304,7 +324,7 @@ def resolve_mode(
         return mode
     shape_key = (tuple(x_shape), tuple(w_shape))
     memo = getattr(cluster, "_mode_cache", None)
-    memo_key = shape_key + (op, bool(weights_cached))
+    memo_key = shape_key + (op, bool(weights_cached), layer is not None)
     if memo is not None and memo_key in memo:
         choice = memo[memo_key]
         cluster.partition_choices[shape_key] = choice
@@ -315,7 +335,8 @@ def resolve_mode(
         choice = "kernel"
     else:
         pred = predict_partition_seconds(
-            cluster, x_shape, w_shape, op, weights_cached=weights_cached
+            cluster, x_shape, w_shape, op, weights_cached=weights_cached,
+            layer=layer,
         )
         choice = "kernel"
         for challenger in ("spatial", "batch"):
@@ -330,6 +351,7 @@ def resolve_mode(
 def plan_conv(
     cluster, x_shape, w: np.ndarray, op: str = "conv",
     partition: Optional[str] = None, weight_key=None,
+    layer: Optional[LayerProbe] = None,
 ) -> LayerPlan:
     """Freeze how one conv layer splits over the devices: the axis
     (resolving ``"auto"`` against what the plan will govern — ``op``
@@ -345,18 +367,46 @@ def plan_conv(
     object is ALREADY current on the slaves (same array identity as
     the version it last shipped), and a current version both discounts
     the weight terms in the byte prediction and lets scatters ship a
-    ~24-byte ``WeightRef`` token instead of the kernel."""
+    ~24-byte ``WeightRef`` token instead of the kernel.
+
+    ``layer`` (a training chain's, ``HeteroCluster.layer_probe``) feeds
+    Eq. 1 the layer's own probe times in place of the cluster-wide
+    ones; its comm term then scales them by what the plan governs
+    (``FLOPS_MULT``).  Without it the comm term keeps the forward's
+    FLOPs, as the JAX package's planner does.
+
+    While a profiler records, each plan is the span ``cluster.plan``
+    (labels ``eq1``: ``layer`` or ``probe``; ``units``: the plan's
+    kernels or rows; ``cpu_units``: those on devices whose backend is
+    not ``cuda``; ``axis``)."""
+    t0 = time.perf_counter()
+    plan = _plan_conv(cluster, x_shape, w, op, partition, weight_key, layer)
+    if spans.recording():
+        spans.record(
+            "cluster.plan", t0, time.perf_counter(),
+            eq1="probe" if layer is None else "layer",
+            units=int(np.sum(plan.counts)),
+            cpu_units=int(sum(c for c, b in zip(plan.counts, cluster.backends)
+                              if b != "cuda")),
+            axis=plan.mode,
+        )
+    return plan
+
+
+def _plan_conv(cluster, x_shape, w, op, partition, weight_key, layer):
     wkey = weight_key if getattr(cluster, "weight_cache", False) else None
     wversion, wcached = 0, False
     if wkey is not None:
         wversion, wcached = cluster._weight_version(wkey, w)
     mode = resolve_mode(
         cluster, tuple(x_shape), tuple(w.shape), partition, op,
-        weights_cached=wcached,
+        weights_cached=wcached, layer=layer,
     )
     b, h, wd, cin = x_shape
     kh, kw, _, cout = w.shape
     layer_flops = 2.0 * b * h * wd * kh * kw * cin * cout
+    if layer is not None:
+        layer_flops *= FLOPS_MULT[op]
     item = cluster._wire_itemsize
     ub = unit_bytes(
         x_shape, w.shape, mode, op, item,
@@ -368,7 +418,7 @@ def plan_conv(
     members = tuple(members) if members is not None else None
     if mode == "kernel":
         counts = cluster.shares_for(
-            cout, unit_bytes=ub, layer_flops=layer_flops
+            cout, unit_bytes=ub, layer_flops=layer_flops, layer=layer
         )
         return LayerPlan(
             "kernel", counts, shards=split_kernels(w, counts),
@@ -377,13 +427,17 @@ def plan_conv(
     if mode == "batch":
         # replicate the kernel, split the N axis; each microbatch
         # scatter re-cuts ``counts`` to its slab via ``batch_ranges``
-        counts = cluster.shares_for(b, unit_bytes=ub, layer_flops=layer_flops)
+        counts = cluster.shares_for(
+            b, unit_bytes=ub, layer_flops=layer_flops, layer=layer
+        )
         return LayerPlan(
             "batch", counts, w=np.asarray(w, np.float32),
             rows=batch_ranges(counts, int(b)),
             member_ids=members, wkey=wkey, wversion=wversion,
         )
-    counts = cluster.shares_for(h, unit_bytes=ub, layer_flops=layer_flops)
+    counts = cluster.shares_for(
+        h, unit_bytes=ub, layer_flops=layer_flops, layer=layer
+    )
     rows, halos = strip_plan(h, kh, counts)
     return LayerPlan(
         "spatial", counts, w=np.asarray(w, np.float32), rows=rows,

@@ -275,6 +275,11 @@ def conv_train_chain(
     slave's cached copy.  Gathers follow global scatter order, so the
     FIFO contract holds even though ``conv`` and ``bwd`` ops
     interleave on the wire.
+
+    Each layer's plan splits by the devices' probe of that layer's
+    geometry (``HeteroCluster.layer_probe``).  A geometry's first plan
+    probes with idle links, so when layer k > 0 is new, layer k-1's
+    later microbatches finish before it is planned.
     """
     L = len(layer_weights)
     assert L >= 1 and head is not None, "need >= 1 conv layer and a head"
@@ -292,19 +297,29 @@ def conv_train_chain(
     # layer identically (comp_duty updates only at the end).  Built
     # lazily at each layer's first microbatch — spatial/auto plans
     # need the layer's ACTUAL activation shape, unknown until the
-    # between stages have run.
+    # between stages have run, and so does the layer's own probe.
     plans: List[Optional[LayerPlan]] = [None] * L
+    early: dict = {}  # microbatch -> layer k's input, finished ahead
 
     def plan_for(k: int, xi: np.ndarray) -> LayerPlan:
         if plans[k] is None:
+            w = layer_weights[k]
+            if k > 0 and cluster.layer_probe_due(xi.shape, w.shape):
+                # the probe's answers would come back behind layer
+                # k-1's later microbatches on the FIFO links: finish
+                # those first (once per layer geometry)
+                for j in range(1, n):
+                    early[j] = fwd_finish(k - 1, j, pend[j])
             # op="train": the plan governs BOTH sweeps, so the auto
             # axis and the comm-aware counts weigh fwd + bwd wire.
+            # Eq. 1 reads the layer's own probe (one call's rows).
             # weight_key opts the layer into the versioned broadcast
             # cache: the backward sweep (and every microbatch after
             # the first) ships a token, never the kernel again
             plans[k] = plan_conv(
-                cluster, (x.shape[0],) + xi.shape[1:], layer_weights[k],
+                cluster, (x.shape[0],) + xi.shape[1:], w,
                 "train", weight_key=("train", k),
+                layer=cluster.layer_probe(xi.shape, w.shape),
             )
         return plans[k]
 
@@ -336,7 +351,12 @@ def conv_train_chain(
     for k in range(L):
         cur: List[Pending] = []
         for i in range(n):
-            xi = parts[i] if k == 0 else fwd_finish(k - 1, i, pend[i])
+            if k == 0:
+                xi = parts[i]
+            elif i in early:
+                xi = early.pop(i)
+            else:
+                xi = fwd_finish(k - 1, i, pend[i])
             xi = np.asarray(xi, np.float32)
             stash_x[k][i] = xi
             cur.append(

@@ -32,6 +32,7 @@ PER_STEP = {
     "step.update_host": 1,
     "step.to_card": STAGES,
     "step.to_host": STAGES,
+    "cluster.plan": LAYERS,
     "cluster.scatter": CONVS,
     "cluster.master_shard": CONVS,
     "cluster.gather_wait": CONVS,
@@ -203,7 +204,8 @@ def test_every_child_span_lies_inside_its_parent(traced_step):
         parents[s.name, p.name] += 1
     # the copies of the stages inside the stages, the rest of the master's inside the step
     assert parents["step.to_card", "cluster.master_stage"] == STEPS * STAGES
-    for name in ("cluster.scatter", "cluster.master_shard", "cluster.gather_wait",
+    for name in ("cluster.plan", "cluster.scatter", "cluster.master_shard",
+                 "cluster.gather_wait",
                  "cluster.master_stage", "step.update_host", "step.kernels_to_host"):
         assert parents[name, "step"] == STEPS * PER_STEP[name]
     # a span on another thread never has a parent on the master's
