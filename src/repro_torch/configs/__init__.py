@@ -1,7 +1,8 @@
 """Config registry of the port: ``get_config("--arch id")``.
 
 Counterpart of ``repro/configs/__init__.py``: the paper's four CIFAR CNN
-sizes (``cifar_cnn.CONFIGS``) and the ten model-zoo architectures, one
+sizes (``cifar_cnn.CONFIGS``), VGG-16 (``vgg16.CONFIG``, the port's own:
+``get_config("vgg16")``) and the ten model-zoo architectures, one
 small data module each (``all_configs`` maps every arch id to its
 config); the dry runs' input shapes (``INPUT_SHAPES``) and their
 stand-ins (``input_specs``, ``shapes_for_arch``).
@@ -13,7 +14,10 @@ from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
     AudioStubConfig,
+    ChainConv,
+    ChainDense,
     CNNConfig,
+    ConvChainConfig,
     INPUT_SHAPES,
     InputShape,
     ModelConfig,
@@ -45,6 +49,10 @@ def get_config(arch_id: str):
         from repro_torch.configs.cifar_cnn import CONFIGS
 
         return CONFIGS[arch_id]
+    if arch_id == "vgg16":
+        from repro_torch.configs.vgg16 import CONFIG
+
+        return CONFIG
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.CONFIG
 

@@ -3,12 +3,14 @@
 Counterpart of ``repro/configs/base.py``, with the same fields and
 defaults.  ``ModelConfig.compute_dtype`` is a torch dtype.  The input
 shapes of the dry runs (``InputShape``, ``INPUT_SHAPES``) are the JAX
-package's.
+package's.  ``ConvChainConfig`` (with ``ChainConv`` and ``ChainDense``)
+is the port's own: a CNN of any depth for the cluster's training path,
+such as VGG-16 (``configs/vgg16.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -125,6 +127,55 @@ class CNNConfig:
     pool_stride: int = 2
     dtype: str = "float32"
     family: str = "cnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainConv:
+    """One conv layer of a ``ConvChainConfig``: ``kernels`` output
+    channels of ``kernel_size`` x ``kernel_size`` (SAME, stride 1), then
+    its stage: +bias, ReLU, cross-channel LRN if ``lrn``, a max-pool
+    (window and stride the chain's ``pool_stride``) if ``pool``.  Its
+    params are ``name`` -> ``kernel`` (HWIO), ``bias``."""
+
+    name: str
+    kernels: int
+    kernel_size: int = 3
+    lrn: bool = False
+    pool: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainDense:
+    """One dense layer of a ``ConvChainConfig``'s head: ``units``
+    outputs, then ReLU if ``relu``, then inverted dropout at ``dropout``
+    (kept units scaled by 1 / (1 - dropout)) if it is above 0.  Its
+    params are ``name`` -> ``kernel`` (in, out), ``bias``."""
+
+    name: str
+    units: int
+    relu: bool = False
+    dropout: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvChainConfig:
+    """A CNN as a chain of conv layers, each with its own stage, and a
+    head of dense layers ending in softmax cross-entropy over the last
+    one's units.  Activations NHWC; the head flattens the last stage's
+    output in H, W, C order."""
+
+    arch_id: str
+    convs: Tuple[ChainConv, ...]
+    dense: Tuple[ChainDense, ...]
+    image_size: int
+    image_channels: int = 3
+    pool_stride: int = 2
+    dtype: str = "float32"
+    family: str = "cnn"
+
+    @property
+    def num_classes(self) -> int:
+        return self.dense[-1].units
 
 
 @dataclasses.dataclass(frozen=True)

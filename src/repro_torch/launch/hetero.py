@@ -18,6 +18,16 @@ master's device and overlap slave compute:
         --backends cuda,cuda,numpy --slowdowns 1,1,1 \
         --c1 500 --c2 1500 --batch 32 --microbatches 4 --steps 3
 
+``--arch`` picks the network: the paper's CIFAR-10 CNN by ``--c1`` and
+``--c2`` (the default), a ``cifar_cnn_*`` id, or ``vgg16`` (VGG-16,
+configuration D of arXiv:1409.1556 at 224x224: 13 convs, each a layer of
+the cluster, and a dense head with dropout), which trains through
+``--train-pipeline`` only, by SGD at ``configs/vgg16.SGD_LR`` (the
+paper's CNN at 0.05):
+
+    PYTHONPATH=src python -m repro_torch.launch.hetero --train-pipeline \
+        --arch vgg16 --backends cuda --slowdowns 1 --batch 32 --steps 3
+
 ``--pipeline`` (and, without it, the barrier protocol) runs the
 autograd step of ``cnn_loss`` with the cluster as its conv
 (``make_distributed_conv``).  ``--serve`` serves requests through the
@@ -49,8 +59,9 @@ sub-master is an OS process with its group inside it as threads:
         --groups 2x2 --backends cuda,cuda,numpy,cuda,numpy \
         --group-partition kernel --c1 500 --c2 1500 --batch 32 --steps 3
 
-Training draws its params from ``init_cnn`` with a ``torch.Generator``
-seeded 0 and its images from one seeded 1 (``train_inputs``); they
+Training draws its params from ``init_cnn`` (``init_chain`` for
+``vgg16``) with a ``torch.Generator`` seeded 0, its images from one
+seeded 1 (``train_inputs``) and its dropout masks from seed 0; they
 cannot equal ``jax.random``'s draws, so parity with the JAX package is
 tested by carrying its params across (``convert.py``).  Serving draws
 identical weights and requests from numpy's generator in both CLIs
@@ -71,10 +82,14 @@ import traceback
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, vgg16
+from repro_torch.configs.base import ConvChainConfig
 from repro_torch.core.cluster.cluster import HeteroCluster, make_distributed_conv
 from repro_torch.core.partitioner import workload_shares
 from repro_torch.models.cnn import (
     cnn_loss,
+    conv_chain,
+    init_chain,
     init_cnn,
     make_cluster_train_step,
     make_cnn_config,
@@ -114,11 +129,13 @@ def relu_pool(y: np.ndarray) -> np.ndarray:
 
 def train_inputs(cfg, batch: int, device):
     """The training run's params and batch on ``device``: ``init_cnn``
-    from a ``torch.Generator`` seeded 0, standard-normal images from one
-    seeded 1, labels ``arange(batch) % num_classes``.  Drawn on the CPU,
-    so the CPU and the card get the same numbers.
+    (``init_chain`` for a ``ConvChainConfig``) from a ``torch.Generator``
+    seeded 0, standard-normal images from one seeded 1, labels
+    ``arange(batch) % num_classes``.  Drawn on the CPU, so the CPU and
+    the card get the same numbers.
     Returns ``(params, images, labels)``."""
-    params = init_cnn(torch.Generator().manual_seed(0), cfg, device)
+    init = init_chain if isinstance(cfg, ConvChainConfig) else init_cnn
+    params = init(torch.Generator().manual_seed(0), cfg, device)
     shape = (batch, cfg.image_size, cfg.image_size, cfg.image_channels)
     images = torch.randn(shape, generator=torch.Generator().manual_seed(1))
     labels = torch.arange(batch) % cfg.num_classes
@@ -168,12 +185,15 @@ def run_hetero(
     groups=None,
     group_partition: str = "auto",
     master_nic_mbps=None,
+    cfg=None,
 ):
-    """``steps`` training steps of the paper's CNN over the cluster, all
-    on the same batch (``train_inputs``).  With ``train_pipeline`` the
-    pipelined full step (``make_cluster_train_step``); otherwise the
-    autograd step with the cluster as its conv (``make_distributed_conv``),
-    microbatched when ``pipeline``.
+    """``steps`` training steps of a CNN over the cluster, all on the
+    same batch (``train_inputs``): ``cfg``, or the paper's CNN at
+    ``c1``/``c2`` kernels.  With ``train_pipeline`` the pipelined full
+    step (``make_cluster_train_step``); otherwise the autograd step of
+    the paper's CNN with the cluster as its conv
+    (``make_distributed_conv``), microbatched when ``pipeline``.  A
+    ``ConvChainConfig`` trains through ``train_pipeline`` only.
 
     ``groups`` (a ``"GxM"`` topology) trains over a
     ``HierarchicalCluster`` instead: device 0 is the root, the batch
@@ -186,7 +206,14 @@ def run_hetero(
     time, Eq. 1 probe times, the timing breakdown and comp-aware duty;
     with ``groups``, each in-process group's inner shares) and the
     params after each step, in order."""
-    cfg = make_cnn_config(c1, c2)
+    cfg = make_cnn_config(c1, c2) if cfg is None else cfg
+    if isinstance(cfg, ConvChainConfig) and not train_pipeline:
+        raise SystemExit(f"{cfg.arch_id} trains through --train-pipeline only")
+    chain = conv_chain(cfg)
+    # each conv layer's kernels, by the names the record has kept
+    widths = ({"c1": cfg.c1_kernels, "c2": cfg.c2_kernels} if chain is not cfg
+              else {c.name: c.kernels for c in chain.convs})
+    last = list(widths)[-1]
     if groups is not None:
         from repro_torch.core.cluster.hierarchy import (
             HierarchicalCluster,
@@ -238,8 +265,9 @@ def run_hetero(
         )
     try:
         probe = cluster.probe(
-            image_size=cfg.image_size, in_channels=cfg.image_channels,
-            kernel_size=cfg.kernel_size, num_kernels=max(8, c1), batch=batch,
+            image_size=chain.image_size, in_channels=chain.image_channels,
+            kernel_size=chain.convs[0].kernel_size,
+            num_kernels=max(8, chain.convs[0].kernels), batch=batch,
         )
         shares = workload_shares(probe)
         print(f"devices: slowdowns={list(cluster.slowdowns)} "
@@ -252,7 +280,7 @@ def run_hetero(
             print(f"measured link bandwidth (Mbps): "
                   f"{[None if b is None else round(b, 1) for b in cluster.measured_bandwidths]}")
         print(f"Eq.1 shares: {np.round(shares, 3).tolist()} -> "
-              f"c2 kernels {cluster.shares_for(c2).tolist()}")
+              f"{last} kernels {cluster.shares_for(widths[last]).tolist()}")
         # in-process groups only: tcp/shm groups live inside their
         # sub-master processes
         group_shares = [
@@ -319,9 +347,9 @@ def run_hetero(
             "backends": list(cluster.backends),
             "probe_s": [float(x) for x in probe],
             "shares": [float(s) for s in shares],
+            "arch": cfg.arch_id,
             "kernels_per_device": {
-                "c1": cluster.shares_for(c1).tolist(),
-                "c2": cluster.shares_for(c2).tolist(),
+                name: cluster.shares_for(n).tolist() for name, n in widths.items()
             },
             "losses": losses,
             "wall_s": wall,
@@ -334,7 +362,7 @@ def run_hetero(
               f"overlap={t.overlap_s:.3f}s")
         if train_pipeline:
             print(f"comp-aware: master non-conv duty={cluster.comp_duty:.2f} -> "
-                  f"c2 kernels now {cluster.shares_for(c2).tolist()}")
+                  f"{last} kernels now {cluster.shares_for(widths[last]).tolist()}")
         if partition == "auto" and cluster.partition_choices:
             print(f"auto partition picks: {rec['partition_choices']}")
         return rec, history
@@ -554,6 +582,10 @@ def main():
     ap.add_argument("--image-size", type=int, default=16,
                     help="request image height/width")
     ap.add_argument("--microbatches", type=int, default=4)
+    ap.add_argument("--arch", default=None,
+                    help="the network trained: a cifar_cnn_* id or vgg16 "
+                         "(VGG-16 at 224x224, --train-pipeline only); "
+                         "default: the paper's CNN at --c1/--c2")
     ap.add_argument("--c1", type=int, default=8)
     ap.add_argument("--c2", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
@@ -561,6 +593,10 @@ def main():
     ap.add_argument("--out", default=None, help="append the record as JSONL")
     args = ap.parse_args()
 
+    if args.arch and (args.serve or not args.train_pipeline):
+        raise SystemExit("--arch trains through --train-pipeline; --serve and the "
+                         "other protocols run the paper's CNN at --c1/--c2")
+    cfg = get_config(args.arch) if args.arch else None
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "no CUDA device: --device cuda (the default) needs a CUDA card "
@@ -595,7 +631,9 @@ def main():
                 train_pipeline=args.train_pipeline, batch=args.batch,
                 steps=args.steps, groups=args.groups,
                 group_partition=args.group_partition,
-                master_nic_mbps=args.master_nic_mbps, **common,
+                master_nic_mbps=args.master_nic_mbps, cfg=cfg,
+                lr=vgg16.SGD_LR if isinstance(cfg, ConvChainConfig) else 0.05,
+                **common,
             )
             ok = bool(np.isfinite(rec["losses"]).all())
         if args.out:

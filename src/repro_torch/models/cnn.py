@@ -10,21 +10,33 @@ a JAX param tree carries across leaf by leaf (``convert.py``).  The
 conv output-channel axis is the paper's distribution axis:
 ``make_cluster_train_step`` runs both conv layers, forward and backward,
 over a ``HeteroCluster``.
+
+``make_cluster_train_step`` trains any ``ConvChainConfig`` (``conv_chain``) too,
+such as VGG-16 (``configs/vgg16.py``): a chain of conv layers, each with
+its own stage, and a dense head with ReLU and dropout; ``init_chain``
+draws its params, ``dropout_masks`` its masks.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import CNNConfig
+from repro_torch.configs.base import ChainConv, ChainDense, CNNConfig, ConvChainConfig
 from repro_torch.core import spans
 from repro_torch.core.backends import drain
 from repro_torch.layers.conv import apply_conv, conv_axes, init_conv, max_pool
 from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
 from repro_torch.layers.norm import local_response_norm
 from repro_torch.sharding.partitioning import flatten_last
+
+# the dense head's init: VGG's random init (arXiv:1409.1556, 3.1), as
+# torchvision's VGG draws its fc layers.  He-normal there (ReLU's gain
+# over thousands of positive features) starts VGG-16 at a loss of 16-30
+# where chance is 6.9.
+DENSE_INIT_STD = 0.01
 
 PAPER_SIZES = {
     "cifar_cnn_50_500": (50, 500),
@@ -120,13 +132,85 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
 
 
-def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
-                            device="cuda"):
-    """Full training steps of the paper's CNN over a HeteroCluster via the
-    pipelined ``conv_train_step`` schedule: both conv layers run
+def conv_chain(cfg) -> ConvChainConfig:
+    """``cfg`` as a chain of conv layers and a dense head: a
+    ``ConvChainConfig`` as it is; the paper's ``CNNConfig`` as ``conv1``
+    and ``conv2`` (each +bias, ReLU, LRN, pool) and one dense layer
+    ``fc``, the names and layouts of ``init_cnn``'s params."""
+    if isinstance(cfg, ConvChainConfig):
+        return cfg
+    k = cfg.kernel_size
+    return ConvChainConfig(
+        arch_id=cfg.arch_id,
+        convs=(ChainConv("conv1", cfg.c1_kernels, k, lrn=True, pool=True),
+               ChainConv("conv2", cfg.c2_kernels, k, lrn=True, pool=True)),
+        dense=(ChainDense("fc", cfg.num_classes),),
+        image_size=cfg.image_size, image_channels=cfg.image_channels,
+        pool_stride=cfg.pool_stride, dtype=cfg.dtype,
+    )
+
+
+def init_chain(generator: torch.Generator, cfg: ConvChainConfig, device="cpu"):
+    """Params drawn from ``generator`` (a CPU generator) layer by layer
+    in the chain's order and placed on ``device``: conv kernels
+    He-normal (arXiv:1502.01852: standard normal times sqrt(2 /
+    fan_in)), dense kernels normal with std ``DENSE_INIT_STD``, zero
+    biases.  ``{name: {"kernel", "bias"}}``, conv kernels HWIO, dense
+    (in, out)."""
+    dtype = getattr(torch, cfg.dtype)
+    params = {}
+
+    def layer(name, shape, std):
+        w = torch.randn(shape, generator=generator) * std
+        params[name] = {"kernel": w.to(device, dtype),
+                        "bias": torch.zeros((shape[-1],), dtype=dtype, device=device)}
+
+    cin, h = cfg.image_channels, cfg.image_size
+    for c in cfg.convs:
+        k = c.kernel_size
+        layer(c.name, (k, k, cin, c.kernels), math.sqrt(2.0 / (k * k * cin)))
+        cin, h = c.kernels, h // cfg.pool_stride if c.pool else h
+    n_in = h * h * cin
+    for d in cfg.dense:
+        layer(d.name, (n_in, d.units), DENSE_INIT_STD)
+        n_in = d.units
+    return params
+
+
+def mask_seed(dropout_seed: int, step: int) -> int:
+    """The seed of step ``step``'s dropout masks: ``dropout_seed`` (mod
+    2**43) times 2**20 plus ``step`` (mod 2**20)."""
+    return (dropout_seed % 2 ** 43) * 2 ** 20 + step % 2 ** 20
+
+
+def dropout_masks(cfg: ConvChainConfig, dropout_seed: int, step: int, batch: int):
+    """The whole batch's inverted-dropout masks of step ``step``, one per
+    dense layer of ``cfg`` (None where its rate is 0): ``(batch, units)``
+    float32 on the CPU, 1 / (1 - rate) where ``torch.rand`` reads at
+    least the rate, else 0, drawn layer by layer from one CPU generator
+    seeded ``mask_seed(dropout_seed, step)``.  A microbatch takes its
+    rows, so the masks do not depend on the microbatch split."""
+    g = torch.Generator().manual_seed(mask_seed(dropout_seed, step))
+    masks = []
+    for d in cfg.dense:
+        if d.dropout > 0:
+            keep = torch.rand((batch, d.units), generator=g) >= d.dropout
+            masks.append(keep.to(torch.float32) / (1.0 - d.dropout))
+        else:
+            masks.append(None)
+    return masks
+
+
+def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
+                            dropout_seed: int = 0):
+    """Full training steps of a CNN over a HeteroCluster via the
+    pipelined ``conv_train_step`` schedule: every conv layer runs
     distributed — forward and backward — while the master-only stages
-    (bias add, ReLU, LRN, pool, fc, softmax loss) overlap slave compute
-    through the activation-stashing pipeline.
+    (each conv's +bias, ReLU, LRN and pool, as its layer has them; the
+    dense head with its ReLUs and dropout; softmax cross-entropy)
+    overlap slave compute through the activation-stashing pipeline.
+    ``cfg`` is the paper's ``CNNConfig`` (two convs, one fc) or any
+    ``ConvChainConfig`` (``conv_chain``).
 
     The master-only stages run as plain PyTorch on ``device`` (the card
     by default) and keep the cluster's numpy-in/numpy-out contract of
@@ -134,6 +218,10 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
     forward instead of holding autograd graphs across the pipeline.  The
     partition axis and the wire codec are the cluster's business: the
     step's numerics stay float32 on the master either way.
+
+    Dropout is inverted: the n-th call (from 0) draws the whole batch's
+    masks at its start with ``dropout_masks(cfg, dropout_seed, n,
+    batch)``, and each microbatch takes its rows.
 
     Returns ``step(params, images, labels) -> (new_params, loss, acc)``
     applying plain SGD with ``lr`` to every parameter; params are
@@ -144,10 +232,16 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
     ``device`` a span with its bytes: ``step.to_card``/``step.to_host``
     for the activations and gradients of the stages and the head,
     ``step.kernels_to_host``/``step.kernels_to_card`` for the conv
-    kernels around the cluster's step.
+    kernels around the cluster's step; ``step.head`` is each
+    microbatch's head (the bytes of its input ``z``; labels ``rows`` and
+    ``layers``, the dense layers), up to the card's drain, and
+    ``step.masks`` the dropout masks' draw and copy (their bytes).
     """
+    chain = conv_chain(cfg)
+    convs, dense = chain.convs, chain.dense
     dev = torch.device(device)
-    s = cfg.pool_stride
+    s = chain.pool_stride
+    calls = [0]  # steps begun, the index of the next step's masks
 
     def _tensor(a) -> torch.Tensor:
         a = np.ascontiguousarray(a, np.float32)
@@ -161,64 +255,94 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
         with spans.span(name, a.nbytes):
             return move(a)
 
-    def _stage(y, b):
-        """The master-only block after each conv: +bias, ReLU, LRN, pool."""
+    def _stage(y, b, layer):
+        """The master-only block after a conv: +bias, ReLU, then LRN and
+        pool where the layer has them."""
         z = torch.relu(y + b)
-        z = local_response_norm(z)
-        return max_pool(z, s, s)
+        if layer.lrn:
+            z = local_response_norm(z)
+        return max_pool(z, s, s) if layer.pool else z
 
-    def _stage_fwd(y, b):
+    def _stage_fwd(y, b, layer):
         with torch.no_grad():
-            return _stage(y, b)
+            return _stage(y, b, layer)
 
-    def _stage_bwd(y, b, gz):
+    def _stage_bwd(y, b, layer, gz):
         with torch.enable_grad():
             y = y.detach().requires_grad_()
             b = b.detach().requires_grad_()
-            return torch.autograd.grad(_stage(y, b), (y, b), gz)
+            return torch.autograd.grad(_stage(y, b, layer), (y, b), gz)
 
-    def _head_both(z, fc, labels, denom):
+    def _head_both(z, head_params, labels, masks, denom):
         """Loss contribution (sum/denom), correct-count, and the grads of
-        the loss alone w.r.t. z and the fc params, of one microbatch."""
+        the loss alone w.r.t. z and every dense layer's params, of one
+        microbatch."""
         with torch.enable_grad():
             z = z.detach().requires_grad_()
-            fcp = {k: v.detach().requires_grad_() for k, v in fc.items()}
-            logits = apply_dense(fcp, z.reshape(z.shape[0], -1))
+            hp = {d.name: {k: v.detach().requires_grad_()
+                           for k, v in head_params[d.name].items()} for d in dense}
+            h = z.reshape(z.shape[0], -1)
+            for d, m in zip(dense, masks):
+                h = apply_dense(hp[d.name], h)
+                if d.relu:
+                    h = torch.relu(h)
+                if m is not None:
+                    h = h * m
+            logits = h
             logp = _log_softmax(logits)
             loss = -logp.gather(1, labels[:, None]).sum() / denom
-            gz, gk, gb = torch.autograd.grad(loss, (z, fcp["kernel"], fcp["bias"]))
+            leaves = [(d.name, k, v) for d in dense for k, v in hp[d.name].items()]
+            gz, *gs = torch.autograd.grad(loss, [z] + [v for _, _, v in leaves])
         correct = (logits.argmax(-1) == labels).sum()
-        return loss.detach(), correct, gz, {"kernel": gk, "bias": gb}
+        grads = {d.name: {} for d in dense}
+        for (name, k, _), g in zip(leaves, gs):
+            grads[name][k] = g
+        return loss.detach(), correct, gz, grads
 
     warmed: set = set()  # microbatch sizes whose stages have run once
 
     def _warm(mb, params):
-        """Run every master-only stage once for this microbatch size
-        OUTSIDE the pipeline, synchronized on the card: one-time CUDA
-        handle and allocator warm-up must not pollute the cluster's
-        measured non-conv duty (it would strip the master's conv share)."""
+        """Run every master-only stage once for this microbatch size, at
+        each distinct stage shape of the chain, OUTSIDE the pipeline,
+        synchronized on the card: one-time CUDA handle and allocator
+        warm-up must not pollute the cluster's measured non-conv duty
+        (it would strip the master's conv share)."""
         if mb in warmed:
             return
         warmed.add(mb)
-        h1 = cfg.image_size
-        h2, h3 = h1 // s, h1 // s ** 2
-        for h, c, b in ((h1, cfg.c1_kernels, params["conv1"]["bias"]),
-                        (h2, cfg.c2_kernels, params["conv2"]["bias"])):
-            y = torch.zeros((mb, h, h, c), device=dev)
-            gz = torch.zeros((mb, h // s, h // s, c), device=dev)
-            _stage_fwd(y, b)
-            _stage_bwd(y, b, gz)
-        _head_both(torch.zeros((mb, h3, h3, cfg.c2_kernels), device=dev),
-                   params["fc"], torch.zeros((mb,), dtype=torch.long, device=dev),
-                   1.0)
+        h, done = chain.image_size, set()
+        for c in convs:
+            out = h // s if c.pool else h
+            if (h, c.kernels, c.lrn, c.pool) not in done:
+                done.add((h, c.kernels, c.lrn, c.pool))
+                y = torch.zeros((mb, h, h, c.kernels), device=dev)
+                gz = torch.zeros((mb, out, out, c.kernels), device=dev)
+                _stage_fwd(y, params[c.name]["bias"], c)
+                _stage_bwd(y, params[c.name]["bias"], c, gz)
+            h = out
+        masks = [torch.zeros((mb, d.units), device=dev) if d.dropout > 0 else None
+                 for d in dense]
+        _head_both(torch.zeros((mb, h, h, convs[-1].kernels), device=dev), params,
+                   torch.zeros((mb,), dtype=torch.long, device=dev), masks, 1.0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def _masks(batch, index):
+        """This step's dropout masks on ``dev`` (None per layer without)."""
+        if not any(d.dropout > 0 for d in dense):
+            return [None] * len(dense)
+        nbytes = 4 * batch * sum(d.units for d in dense if d.dropout > 0)
+        with spans.span("step.masks", nbytes):
+            return [None if m is None else m.to(dev)
+                    for m in dropout_masks(chain, dropout_seed, index, batch)]
 
     def step(params, images, labels):
         with spans.span("step"):
             return _step(params, images, labels)
 
     def _step(params, images, labels):
+        index = calls[0]
+        calls[0] += 1
         if isinstance(images, torch.Tensor):
             drain(images)
             images = _host(images)
@@ -229,17 +353,20 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
         slices = cluster.microbatch_slices(batch)
         for sl in slices:
             _warm(sl.stop - sl.start, params)
+        masks = _masks(batch, index)
 
-        db = {0: None, 1: None}  # conv bias grads, summed over microbatches
-        fc_grad = [None]         # fc param grads, ditto
+        db = [None] * len(convs)  # conv bias grads, summed over microbatches
+        head_grad = [None]        # dense param grads, ditto
 
-        def make_between(k, bias):
+        def make_between(k):
+            layer, bias = convs[k], params[convs[k].name]["bias"]
+
             def f(y):
                 y = _moved("step.to_card", _tensor, y)
-                z = _stage_fwd(y, bias)
+                z = _stage_fwd(y, bias, layer)
 
                 def pull(gz):
-                    gy, gb = _stage_bwd(y, bias, _moved("step.to_card", _tensor, gz))
+                    gy, gb = _stage_bwd(y, bias, layer, _moved("step.to_card", _tensor, gz))
                     db[k] = gb if db[k] is None else db[k] + gb
                     return _moved("step.to_host", _host, gy)
 
@@ -247,19 +374,21 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
             return f
 
         def head(z, i):
-            loss_i, correct_i, gz, gfc = _head_both(
-                _moved("step.to_card", _tensor, z), params["fc"], labels[slices[i]],
-                float(batch))
-            fc_grad[0] = gfc if fc_grad[0] is None else {
-                k: fc_grad[0][k] + gfc[k] for k in gfc}
+            sl = slices[i]
+            zt = _moved("step.to_card", _tensor, z)
+            with spans.span("step.head", z.nbytes, rows=sl.stop - sl.start,
+                            layers=len(dense)):
+                loss_i, correct_i, gz, g = _head_both(
+                    zt, params, labels[sl], [None if m is None else m[sl] for m in masks],
+                    float(batch))
+                drain(gz)
+            head_grad[0] = g if head_grad[0] is None else {
+                n: {k: head_grad[0][n][k] + v for k, v in d.items()} for n, d in g.items()}
             return (float(loss_i), float(correct_i)), _moved("step.to_host", _host, gz)
 
-        between = [
-            make_between(0, params["conv1"]["bias"]),
-            make_between(1, params["conv2"]["bias"]),
-        ]
-        kernels = [_moved("step.kernels_to_host", _host, params[k]["kernel"])
-                   for k in ("conv1", "conv2")]
+        between = [make_between(k) for k in range(len(convs))]
+        kernels = [_moved("step.kernels_to_host", _host, params[c.name]["kernel"])
+                   for c in convs]
         new_kernels, res = cluster.conv_train_step(
             images, kernels, between, head,
             update=lambda w, dw: w - lr * dw,
@@ -267,17 +396,15 @@ def make_cluster_train_step(cluster, cfg: CNNConfig, *, lr: float = 0.05,
 
         loss = float(sum(a[0] for a in res.head_aux))
         acc = float(sum(a[1] for a in res.head_aux)) / batch
-        new_params = {
-            "conv1": {
-                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[0]),
-                "bias": params["conv1"]["bias"] - lr * db[0],
-            },
-            "conv2": {
-                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[1]),
-                "bias": params["conv2"]["bias"] - lr * db[1],
-            },
-            "fc": {k: params["fc"][k] - lr * fc_grad[0][k] for k in params["fc"]},
-        }
+        new_params = {}
+        for k, c in enumerate(convs):
+            new_params[c.name] = {
+                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[k]),
+                "bias": params[c.name]["bias"] - lr * db[k],
+            }
+        for d in dense:
+            new_params[d.name] = {k: params[d.name][k] - lr * head_grad[0][d.name][k]
+                                  for k in params[d.name]}
         return new_params, loss, acc
 
     return step

@@ -32,6 +32,7 @@ PER_STEP = {
     "step.update_host": 1,
     "step.to_card": STAGES,
     "step.to_host": STAGES,
+    "step.head": MICRO,
     "cluster.plan": LAYERS,
     "cluster.scatter": CONVS,
     "cluster.master_shard": CONVS,
@@ -175,7 +176,7 @@ def test_a_step_records_no_other_names_and_moves_bytes_where_it_copies(traced_st
     assert set(c) == set(PER_STEP)
     moved = {n for n, v in c.items() if v.bytes}
     assert moved == {"step.kernels_to_host", "step.kernels_to_card", "step.to_card",
-                     "step.to_host"}
+                     "step.to_host", "step.head"}
     # both conv kernels, each way, every step: 5x5x3x4 and 5x5x4x8 floats
     assert c["step.kernels_to_host"].bytes == c["step.kernels_to_card"].bytes == (
         STEPS * 4 * (5 * 5 * 3 * 4 + 5 * 5 * 4 * 8))
@@ -204,6 +205,7 @@ def test_every_child_span_lies_inside_its_parent(traced_step):
         parents[s.name, p.name] += 1
     # the copies of the stages inside the stages, the rest of the master's inside the step
     assert parents["step.to_card", "cluster.master_stage"] == STEPS * STAGES
+    assert parents["step.head", "cluster.master_stage"] == STEPS * MICRO
     for name in ("cluster.plan", "cluster.scatter", "cluster.master_shard",
                  "cluster.gather_wait",
                  "cluster.master_stage", "step.update_host", "step.kernels_to_host"):
