@@ -21,16 +21,23 @@ different kernels (the paper's CPU/GPU scenario):
               device (``torch:cpu``, ``torch:cuda``), with an autograd
               VJP: the reference the tests run the protocol on.
 
-All primitives take and return **numpy** arrays: the master/slave
+Every primitive takes and returns **numpy** arrays: the master/slave
 protocol moves serialized host buffers (the emulated sockets), and numpy
-is the one currency every backend speaks.  ``probe_conv_time`` times the
-SAME code a device will run for the real workload, so the Eq. 1 shares
-computed from probe times are exact per backend.
+is the one currency every backend speaks.  A backend that computes on a
+torch device (``device``; None for ``numpy`` and ``sim``) also takes
+tensors already on that device and returns tensors there: the master's
+own shard of a training step, whose operands stay on the card.  ``seam``
+is the one move between the host's numpy and a torch device.
+``probe_conv_time`` times the SAME code a device will run for the real
+workload, so the Eq. 1 shares computed from probe times are exact per
+backend.
 """
 from __future__ import annotations
 
+import contextlib
+import sys
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +48,7 @@ class ConvBackend:
     """The per-device compute contract of the distributed conv engine."""
 
     name: str = "base"
+    device = None  # the torch device it computes on; None: numpy only
 
     def conv(self, x: np.ndarray, w: np.ndarray) -> np.ndarray:
         """NHWC x HWIO -> NHWC, SAME padding, stride 1."""
@@ -247,13 +255,68 @@ def strip_conv_vjp(
 # ---------------------------------------------------------------------------
 
 
-def _host_tensor(a):
-    """A float32 CPU tensor over ``a``'s bytes, copied only where numpy
-    hands a read-only or non-contiguous array (torch wants writable)."""
+def is_tensor(a) -> bool:
+    """Whether ``a`` is a torch tensor, without importing torch (a numpy
+    slave process never loads it)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(a, torch.Tensor)
+
+
+def _moved(a, device):
     import torch
 
+    if device is None:
+        return a.detach().to(torch.float32).contiguous().cpu().numpy()
+    if is_tensor(a):
+        return a.detach().to(device, torch.float32)
     a = np.ascontiguousarray(a, np.float32)
-    return torch.from_numpy(a if a.flags.writeable else a.copy())
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+def seam(device, name: Optional[str] = None, **operands):
+    """The operands where ``device`` says: float32 tensors on ``device``,
+    or with ``device`` None float32 numpy arrays on the host, C-contiguous
+    where they moved.  An operand already there passes as it is.  Each
+    operand that moves crosses the seam between the host's numpy and a
+    torch device: a tensor's stream is drained first, so that the span
+    ``name`` (where given, and where any bytes move) is the copies alone,
+    with their bytes by keyword.  One operand returns alone, several as a
+    tuple in their order."""
+    if device is None:
+        out = {k: a if is_tensor(a) else np.asarray(a, np.float32)
+               for k, a in operands.items()}
+        moving = [k for k, a in out.items() if is_tensor(a)]
+        for k in moving:
+            drain(out[k])
+    else:
+        import torch
+
+        device = torch.device(device)
+        out = dict(operands)
+        # a tensor on ``device`` stays (``cuda`` with no index: on any card)
+        moving = [k for k, a in out.items() if not (
+            is_tensor(a) and a.dtype == torch.float32 and a.device.type == device.type
+            and device.index in (None, a.device.index))]
+    nbytes = {k: 4 * int(np.prod(out[k].shape)) for k in moving}
+    nbytes = {k: n for k, n in nbytes.items() if n}
+    with (spans.span(name, nbytes) if name and nbytes else contextlib.nullcontext()):
+        for k in moving:
+            out[k] = _moved(out[k], device)
+    vals = tuple(out.values())
+    return vals[0] if len(vals) == 1 else vals
+
+
+def concat(parts, axis: int):
+    """``parts`` joined along ``axis``: numpy arrays by
+    ``np.concatenate``, tensors by ``torch.cat`` (a lone tensor as it
+    is)."""
+    if not is_tensor(parts[0]):
+        return np.concatenate(parts, axis=axis)
+    if len(parts) == 1:
+        return parts[0]
+    import torch
+
+    return torch.cat(parts, dim=axis)
 
 
 def drain(t) -> None:
@@ -285,17 +348,20 @@ def _cuda_device(index: int = 0):
 class CudaBackend(ConvBackend):
     """Runs the hand-written conv kernels (kernels/conv2d.py) on a CUDA
     device: ``conv2d`` forward, ``conv2d_dx`` and ``conv2d_dw`` backward.
-    The contract is numpy in and out, so every call copies its operands
-    to the card and its results back.  The kernels are built here, at
-    construction, so a missing ``nvcc`` or a failed build raises before
-    any slave thread starts.
+    Numpy operands are copied to the card and the results back; tensors
+    on the card (contiguous, as the kernels read them) are computed on
+    where they are and the results stay there.  The kernels are built
+    here, at construction, so a missing ``nvcc`` or a failed build
+    raises before any slave thread starts.
 
-    While a torch profiler records, each call is three spans
-    (``core/spans.py``): ``cuda.to_card`` (the operands' bytes by name,
-    ``x``, ``w``, ``g``), ``cuda.compute`` (the launches up to the
-    stream's drain) and ``cuda.to_host`` (``y``, or ``dx`` and ``dw``).
-    The drain runs traced or not: the copy back would wait for the
-    kernels anyway."""
+    While a torch profiler records, each call is up to three spans
+    (``core/spans.py``): ``cuda.to_card`` (the bytes of the operands that
+    crossed, by name: ``x``, ``w``, ``g``), ``cuda.compute`` (the
+    launches up to the stream's drain; label ``operands``: ``host`` for
+    numpy operands, ``card`` for tensors) and ``cuda.to_host`` (``y``,
+    or ``dx`` and ``dw``, for numpy operands).  The drain runs traced or
+    not: a copy back would wait for the kernels anyway, and the
+    cluster's timing of the master's shard reads it."""
 
     name = "cuda"
 
@@ -312,36 +378,31 @@ class CudaBackend(ConvBackend):
     def conv(self, x, w):
         from repro_torch.kernels.conv2d import conv2d
 
-        with spans.span("cuda.to_card", {"x": 4 * x.size, "w": 4 * w.size}):
-            xt = _host_tensor(x).to(self.device)
-            wt = _host_tensor(w).to(self.device)
-        with spans.span("cuda.compute"):
+        host = not is_tensor(x)
+        xt, wt = seam(self.device, "cuda.to_card", x=x, w=w)
+        with spans.span("cuda.compute", operands="host" if host else "card"):
             y = conv2d(xt, wt)
             drain(y)
-        with spans.span("cuda.to_host", {"y": y.nbytes}):
-            return y.cpu().numpy()
+        return seam(None, "cuda.to_host", y=y) if host else y
 
     def conv_vjp(self, x, w, g):
         from repro_torch.kernels.conv2d import conv2d_dw, conv2d_dx
 
-        with spans.span("cuda.to_card", {"x": 4 * x.size, "w": 4 * w.size,
-                                         "g": 4 * g.size}):
-            xt = _host_tensor(x).to(self.device)
-            wt = _host_tensor(w).to(self.device)
-            gt = _host_tensor(g).to(self.device)
-        with spans.span("cuda.compute"):
+        host = not is_tensor(x)
+        xt, wt, gt = seam(self.device, "cuda.to_card", x=x, w=w, g=g)
+        with spans.span("cuda.compute", operands="host" if host else "card"):
             dx = conv2d_dx(gt, wt)
             dw = conv2d_dw(xt, gt, wt.shape[0], wt.shape[1])
             drain(dw)
-        with spans.span("cuda.to_host", {"dx": dx.nbytes, "dw": dw.nbytes}):
-            return dx.cpu().numpy(), dw.cpu().numpy()
+        return seam(None, "cuda.to_host", dx=dx, dw=dw) if host else (dx, dw)
 
 
 @register_backend("torch")
 class TorchBackend(ConvBackend):
     """The plain PyTorch conv (kernels/ref.py) on a named device —
     ``torch`` / ``torch:cpu`` (the default) or ``torch:cuda``; its VJP
-    is autograd of the same arithmetic."""
+    is autograd of the same arithmetic.  Numpy in, numpy out; tensors on
+    its device in, tensors out."""
 
     name = "torch"
 
@@ -352,7 +413,7 @@ class TorchBackend(ConvBackend):
         self.device = _cuda_device(dev.index or 0) if dev.type == "cuda" else dev
 
     def _tensor(self, a, grad: bool = False):
-        return _host_tensor(a).to(self.device).requires_grad_(grad)
+        return seam(self.device, a=a).detach().requires_grad_(grad)
 
     def conv(self, x, w):
         import torch
@@ -360,7 +421,8 @@ class TorchBackend(ConvBackend):
         from repro_torch.kernels.ref import conv2d_ref
 
         with torch.no_grad():
-            return conv2d_ref(self._tensor(x), self._tensor(w)).cpu().numpy()
+            y = conv2d_ref(self._tensor(x), self._tensor(w))
+        return y if is_tensor(x) else seam(None, y=y)
 
     def conv_vjp(self, x, w, g):
         import torch
@@ -373,7 +435,7 @@ class TorchBackend(ConvBackend):
             dx, dw = torch.autograd.grad(
                 conv2d_ref(xt, wt), (xt, wt), self._tensor(g)
             )
-        return dx.cpu().numpy(), dw.cpu().numpy()
+        return (dx, dw) if is_tensor(x) else seam(None, dx=dx, dw=dw)
 
 
 # ---------------------------------------------------------------------------

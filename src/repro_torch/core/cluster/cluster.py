@@ -78,8 +78,11 @@ import numpy as np
 
 from repro_torch.core import spans
 from repro_torch.core.backends import (
+    concat,
     get_backend,
+    is_tensor,
     probe_conv_time,
+    seam,
     strip_conv,
     strip_conv_vjp,
 )
@@ -269,6 +272,8 @@ class HeteroCluster:
         for name in self.backends:
             get_backend(name)
         self._master_backend = get_backend(self.backends[0])
+        # the torch device the master's backend computes on (None: numpy)
+        self.master_device = self._master_backend.device
         self.pipeline = bool(pipeline)
         self.microbatches = int(microbatches)
         if partition not in plans.PARTITION_MODES:
@@ -1105,9 +1110,10 @@ class HeteroCluster:
         ``None`` for "reuse your per-op cache".  Versioned path: a
         ``WeightRef`` — bare token when this link already received this
         exact (version, geometry, position), kernel attached otherwise,
-        so an unchanged serve kernel crosses each link once."""
+        so an unchanged serve kernel crosses each link once.  A shard on
+        the master's device crosses to the host only where it ships."""
         if plan.wkey is None:
-            return shard if send_weights else None
+            return seam(None, "cluster.to_host", w=shard) if send_weights else None
         token = (
             plan.wversion, plan.mode,
             tuple(int(c) for c in plan.counts), pos,
@@ -1116,7 +1122,8 @@ class HeteroCluster:
         if shipped.get(plan.wkey) == token:
             return codec.WeightRef(plan.wkey, plan.wversion, None)
         shipped[plan.wkey] = token
-        return codec.WeightRef(plan.wkey, plan.wversion, shard)
+        return codec.WeightRef(plan.wkey, plan.wversion,
+                               seam(None, "cluster.to_host", w=shard))
 
     def predict_partition_seconds(
         self, x_shape, w_shape, op: str = "conv"
@@ -1192,13 +1199,62 @@ class HeteroCluster:
         except SlaveLost as e:
             self._on_slave_lost(sock, e)
 
+    # -- the card path: the master's operands on its own device ----------
+    def _card(self, x):
+        """The master's device where ``x`` is a tensor on it (the card
+        path), else None (the host path)."""
+        d = self.master_device
+        return d if d is not None and is_tensor(x) and x.device == d else None
+
+    def _operand(self, a):
+        """``a`` as the cluster's ops take it: a float32 tensor on the
+        master's device, made contiguous once here, before any backend
+        call (the card path); else a float32 numpy array."""
+        if self._card(a) is not None:
+            return a.float().contiguous()
+        return np.asarray(a, np.float32)
+
+    def _slave_x(self, x, plan: plans.LayerPlan, x_host):
+        """The input a kernel-axis op hands its slaves: ``x`` itself on
+        the host path.  On the card path x's host copy: the forward's
+        (``x_host``) where given, else made here (the span
+        ``cluster.to_host``) where a slave holds kernels, else a
+        zero-stride stand-in of x's shape (a slave without kernels reads
+        only the shape)."""
+        if not is_tensor(x):
+            return x
+        if x_host is not None:
+            return x_host
+        if np.any(np.asarray(plan.counts)[1:]):
+            return seam(None, "cluster.to_host", x=x)
+        return np.broadcast_to(np.zeros((), np.float32), tuple(x.shape))
+
     def _scatter_conv_planned(
+        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool,
+        x_host=None,
+    ) -> scheduler.Pending:
+        """The op's scatter.  With ``x`` a tensor on the master's device
+        (the card path) the kernel axis computes the master's shard on
+        it and hands the slaves its host copy; the spatial and batch
+        axes run their host path on that copy, and their gather hands
+        back a tensor.  ``x_host``: the host copy an earlier op of the
+        same input made (the backward reuses the forward's)."""
+        device = self._card(x)
+        if plan.mode == "kernel":
+            p = self._scatter_conv_shards(x, plan, send_weights, x_host)
+        else:
+            if device is not None:
+                x = x_host if x_host is not None else seam(None, "cluster.to_host", x=x)
+            scatter = (self._scatter_conv_batch if plan.mode == "batch"
+                       else self._scatter_conv_strips)
+            p = scatter(x, plan, send_weights)
+            p.x_host = x
+        p.device = device
+        return p
+
+    def _scatter_conv_strips(
         self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool
     ) -> scheduler.Pending:
-        if plan.mode == "kernel":
-            return self._scatter_conv_shards(x, plan, send_weights)
-        if plan.mode == "batch":
-            return self._scatter_conv_batch(x, plan, send_weights)
         socks = self._plan_sockets(plan)
         t0 = time.perf_counter()
         for pos, (sock, (lo, hi, pt, pb)) in enumerate(
@@ -1217,24 +1273,26 @@ class HeteroCluster:
         )
 
     def _scatter_conv_shards(
-        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool
+        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool,
+        x_host=None,
     ) -> scheduler.Pending:
         """send_weights=False sends w=None: the slave reuses its cached
         shard, so pipelined microbatches pay the weight traffic once."""
         socks = self._plan_sockets(plan)
         t0 = time.perf_counter()
+        xs = self._slave_x(x, plan, x_host)
         for pos, (sock, shard) in enumerate(
             zip(socks, plan.shards[1:]), start=1
         ):
             ws = self._wire_weights(sock, plan, pos, shard, send_weights)
-            self._write_op(sock, ("conv", (x, ws)))
+            self._write_op(sock, ("conv", (xs, ws)))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
         spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "conv", self._seq_issued, x, plan.shards[0], None, now,
-            plan=plan, parts=socks,
+            plan=plan, parts=socks, x_host=xs,
         )
 
     def _scatter_conv_batch(
@@ -1268,13 +1326,15 @@ class HeteroCluster:
         along channels (kernel mode), height (spatial strips), or the
         N axis (batch rows).  A participant lost since the scatter
         contributes via the master's recovery compute instead of the
-        wire."""
+        wire.  On the card path the result lies on the master's device:
+        the kernel axis brings each slave's channels there and
+        concatenates there."""
         self._check_order(p, "conv")
         t0 = time.perf_counter()
         if p.mode == "spatial":
             lo, hi, pt, pb = p.halos[0]
             my_out = self._master_compute(
-                lambda: strip_conv(self._master_backend, p.x[:, lo:hi], p.my_w, pt, pb)
+                lambda: strip_conv(self._master_backend, p.x[:, lo:hi], p.my_w, pt, pb), p
             )
             axis = 1
         elif p.mode == "batch":
@@ -1282,12 +1342,12 @@ class HeteroCluster:
             my_out = self._master_compute(
                 lambda: protocol.conv_shard(
                     self._master_backend, p.x[r0:r1], p.my_w
-                )
+                ), p
             )
             axis = 0
         else:
             my_out = self._master_compute(
-                lambda: protocol.conv_shard(self._master_backend, p.x, p.my_w)
+                lambda: protocol.conv_shard(self._master_backend, p.x, p.my_w), p
             )
             axis = -1
         outs = [my_out]
@@ -1296,7 +1356,9 @@ class HeteroCluster:
             outs.append(self._read_or_recover(sock, p, idx))
         t1 = time.perf_counter()
         self._account_gather(p, t0, t_wait, t1)
-        return np.concatenate(outs, axis=axis)
+        if p.mode != "kernel":  # the host path ran: its result to the master
+            return seam(p.device, "cluster.to_card", y=np.concatenate(outs, axis=axis))
+        return concat([seam(p.device, "cluster.to_card", y=y) for y in outs], axis)
 
     def scatter_bwd(
         self, x: np.ndarray, w: np.ndarray, g: np.ndarray,
@@ -1322,12 +1384,27 @@ class HeteroCluster:
 
     def _scatter_bwd_planned(
         self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
+        send_weights: bool, x_host=None,
+    ) -> scheduler.Pending:
+        """The VJP's scatter; the card path as ``_scatter_conv_planned``
+        has it, ``x_host`` the forward's host copy of ``x``."""
+        device = self._card(x)
+        if plan.mode == "kernel":
+            p = self._scatter_bwd_shards(x, plan, g, send_weights, x_host)
+        else:
+            if device is not None:
+                x = x_host if x_host is not None else seam(None, "cluster.to_host", x=x)
+                g = seam(None, "cluster.to_host", g=g)
+            scatter = (self._scatter_bwd_batch if plan.mode == "batch"
+                       else self._scatter_bwd_strips)
+            p = scatter(x, plan, g, send_weights)
+        p.device = device
+        return p
+
+    def _scatter_bwd_strips(
+        self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
         send_weights: bool,
     ) -> scheduler.Pending:
-        if plan.mode == "kernel":
-            return self._scatter_bwd_shards(x, plan, g, send_weights)
-        if plan.mode == "batch":
-            return self._scatter_bwd_batch(x, plan, g, send_weights)
         socks = self._plan_sockets(plan)
         t0 = time.perf_counter()
         for pos, (sock, (r0, r1), (lo, hi, pt, pb)) in enumerate(
@@ -1374,23 +1451,27 @@ class HeteroCluster:
 
     def _scatter_bwd_shards(
         self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
-        send_weights: bool,
+        send_weights: bool, x_host=None,
     ) -> scheduler.Pending:
+        """On the card path the master's gradient slice is contiguous on
+        its device and a slave's slice crosses to the host where it
+        holds kernels."""
         socks = self._plan_sockets(plan)
         g_shards = self._split(g, plan.counts)
         t0 = time.perf_counter()
+        xs = self._slave_x(x, plan, x_host)
         for pos, (sock, shard, gs) in enumerate(
             zip(socks, plan.shards[1:], g_shards[1:]), start=1
         ):
             ws = self._wire_weights(sock, plan, pos, shard, send_weights)
-            self._write_op(sock, ("bwd", (x, ws, gs)))
+            self._write_op(sock, ("bwd", (xs, ws, seam(None, "cluster.to_host", g=gs))))
         now = time.perf_counter()
         self.timing.comm_s += now - t0
         spans.record("cluster.scatter", t0, now)
         self._seq_issued += 1
         return scheduler.Pending(
             "bwd", self._seq_issued, x, plan.shards[0], g_shards[0], now,
-            plan=plan, parts=socks, g_all=g,
+            plan=plan, parts=socks, g_all=g, x_host=xs,
         )
 
     def gather_bwd(self, p: scheduler.Pending) -> Tuple[np.ndarray, np.ndarray]:
@@ -1400,7 +1481,10 @@ class HeteroCluster:
         dW contributions.  Batch mode: concat dX rows along the N axis
         and SUM the per-member full dW — dW is a sum over disjoint batch
         rows, so the reduction is exact.  Lost participants'
-        contributions come from the master's recovery compute."""
+        contributions come from the master's recovery compute.  On the
+        card path both results lie on the master's device: the kernel
+        axis brings each slave's there, sums dX and concatenates dW
+        there."""
         self._check_order(p, "bwd")
         t0 = time.perf_counter()
         if p.mode == "batch":
@@ -1408,7 +1492,7 @@ class HeteroCluster:
             dx0, dw = self._master_compute(
                 lambda: protocol.bwd_shard(
                     self._master_backend, p.x[r0:r1], p.my_w, p.my_g
-                )
+                ), p
             )
             dxs = [dx0]
             t_wait = time.perf_counter()
@@ -1418,13 +1502,14 @@ class HeteroCluster:
                 dw = dw + dw_i
             t1 = time.perf_counter()
             self._account_gather(p, t0, t_wait, t1)
-            return np.concatenate(dxs, axis=0), dw
+            dx = np.concatenate(dxs, axis=0)
+            return seam(p.device, "cluster.to_card", dx=dx, dw=dw)
         if p.mode == "spatial":
             lo, hi, pt, pb = p.halos[0]
             dxh, dw = self._master_compute(
                 lambda: strip_conv_vjp(
                     self._master_backend, p.x[:, lo:hi], p.my_w, p.my_g, pt, pb
-                )
+                ), p
             )
             dx = np.zeros(p.x.shape, np.float32)
             dx[:, lo:hi] += dxh
@@ -1436,19 +1521,20 @@ class HeteroCluster:
                 dw = dw + dw_i
             t1 = time.perf_counter()
             self._account_gather(p, t0, t_wait, t1)
-            return dx, dw
+            return seam(p.device, "cluster.to_card", dx=dx, dw=dw)
         dx, dw0 = self._master_compute(
-            lambda: protocol.bwd_shard(self._master_backend, p.x, p.my_w, p.my_g)
+            lambda: protocol.bwd_shard(self._master_backend, p.x, p.my_w, p.my_g), p
         )
         dws = [dw0]
         t_wait = time.perf_counter()
-        for idx, sock in enumerate(p.parts):
-            dxi, dwi = self._read_or_recover(sock, p, idx)
-            dx = dx + dxi
-            dws.append(dwi)
+        got = [self._read_or_recover(sock, p, idx) for idx, sock in enumerate(p.parts)]
         t1 = time.perf_counter()
         self._account_gather(p, t0, t_wait, t1)
-        return dx, np.concatenate(dws, axis=-1)
+        for dxi, dwi in got:  # in device order, where the master's shard lies
+            dxi, dwi = seam(p.device, "cluster.to_card", dx=dxi, dw=dwi)
+            dx = dx + dxi
+            dws.append(dwi)
+        return dx, concat(dws, -1)
 
     def _check_result(self, out):
         """Re-raise a slave's shipped exception at the gather that would
@@ -1541,7 +1627,11 @@ class HeteroCluster:
             )
         self._seq_gathered = p.seq
 
-    def _master_compute(self, fn):
+    def _master_compute(self, fn, p: scheduler.Pending):
+        """``fn()``, the master's own shard of ``p``: the span
+        ``cluster.master_shard`` (label ``operands``: ``card`` where the
+        shard is computed on the master's device, ``host`` where on
+        numpy), timed into ``LayerTiming.master_conv_s``."""
         t0 = time.perf_counter()
         out = fn()
         el = time.perf_counter() - t0
@@ -1550,7 +1640,8 @@ class HeteroCluster:
             time.sleep(el * (self.slowdowns[0] - 1.0))
         t1 = time.perf_counter()
         self.timing.master_conv_s += t1 - t0
-        spans.record("cluster.master_shard", t0, t1)
+        spans.record("cluster.master_shard", t0, t1, operands=(
+            "card" if p.device is not None and p.mode == "kernel" else "host"))
         return out
 
     def _account_gather(self, p: scheduler.Pending, t0, t_wait, t1):
@@ -1676,22 +1767,19 @@ def make_distributed_conv(cluster: HeteroCluster):
     neither refusal is kept."""
     import torch
 
-    def host(t):
-        return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
-
     def like(a, t):
-        return torch.from_numpy(np.array(a, np.float32)).to(t.device, t.dtype)
+        return seam(t.device, a=a).to(t.dtype)
 
     class DistributedConv(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, w, b):
             ctx.save_for_backward(x, w)
-            return like(cluster.conv_forward(host(x), host(w)), x) + b
+            return like(cluster.conv_forward(*seam(None, x=x, w=w)), x) + b
 
         @staticmethod
         def backward(ctx, g):
             x, w = ctx.saved_tensors
-            dx, dw = cluster.conv_backward(host(x), host(w), host(g))
+            dx, dw = cluster.conv_backward(*seam(None, x=x, w=w, g=g))
             return like(dx, x), like(dw, w), g.sum((0, 1, 2))
 
     def conv_fn(params, x):

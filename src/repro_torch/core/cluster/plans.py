@@ -10,8 +10,10 @@ geometry, batch-row ranges, per-unit wire bytes, the wall-clock
 predictor and the axis resolver — over a duck-typed ``cluster`` that
 supplies device state (``_effective_times``, ``shares_for``,
 ``bandwidths``, ``probe_flops``, ``_wire_itemsize``, ``partition``,
-``partition_choices``).  No transport, no threads, numpy only; each
-plan is a span (``core/spans.py``) while a profiler records.
+``partition_choices``).  No transport, no threads; each plan is a span
+(``core/spans.py``) while a profiler records.  A kernel on the master's
+device stays there in a kernel-axis plan; the spatial and batch axes
+take its host copy (the span ``cluster.to_host``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core import spans
+from repro_torch.core.backends import is_tensor, seam
 
 PARTITION_MODES = ("kernel", "spatial", "batch", "auto")
 # the FLOPs of what a plan governs, in forward passes of the layer: the
@@ -138,9 +141,14 @@ class LayerPlan:
 
 
 def split_kernels(w: np.ndarray, counts: np.ndarray) -> List[np.ndarray]:
-    """Split the kernel's output-channel axis into per-device shards."""
+    """Split the kernel's (or a gradient's) output-channel axis into
+    contiguous per-device shards, on ``w``'s device where it is a tensor:
+    each device computes on the layout a wire delivers, whichever side
+    of the seam its shard comes from."""
+    if is_tensor(w):
+        return [s.contiguous() for s in w.split([int(c) for c in counts], dim=-1)]
     edges = np.cumsum(counts)[:-1]
-    return np.split(w, edges, axis=-1)
+    return [np.ascontiguousarray(s) for s in np.split(w, edges, axis=-1)]
 
 
 def unit_bytes(
@@ -431,7 +439,7 @@ def _plan_conv(cluster, x_shape, w, op, partition, weight_key, layer):
             b, unit_bytes=ub, layer_flops=layer_flops, layer=layer
         )
         return LayerPlan(
-            "batch", counts, w=np.asarray(w, np.float32),
+            "batch", counts, w=seam(None, "cluster.to_host", w=w),
             rows=batch_ranges(counts, int(b)),
             member_ids=members, wkey=wkey, wversion=wversion,
         )
@@ -440,7 +448,7 @@ def _plan_conv(cluster, x_shape, w, op, partition, weight_key, layer):
     )
     rows, halos = strip_plan(h, kh, counts)
     return LayerPlan(
-        "spatial", counts, w=np.asarray(w, np.float32), rows=rows,
+        "spatial", counts, w=seam(None, "cluster.to_host", w=w), rows=rows,
         halos=halos, member_ids=members, wkey=wkey, wversion=wversion,
     )
 

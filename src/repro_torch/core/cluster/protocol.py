@@ -83,13 +83,21 @@ class SlaveError:
         self.tb = tb
 
 
+def _zeros(like, shape):
+    """float32 zeros of ``shape`` where ``like`` lives: a tensor's
+    device, else the host's numpy."""
+    shape = tuple(shape)
+    return like.new_zeros(shape) if hasattr(like, "new_zeros") else np.zeros(shape, np.float32)
+
+
 def conv_shard(backend, x: np.ndarray, w: np.ndarray) -> np.ndarray:
     """Backend conv with the 0-kernel and 0-batch fast paths: comp-aware
     shares (or a very slow device) may legally allocate 0 kernels — or,
     on the batch axis, 0 rows — which not every backend kernel tolerates
-    (a CUDA launch with an empty grid is refused; sim flops scale with N)."""
+    (a CUDA launch with an empty grid is refused; sim flops scale with N).
+    The zeros lie where the operands do."""
     if w.shape[-1] == 0 or x.shape[0] == 0:
-        return np.zeros(x.shape[:-1] + (w.shape[-1],), np.float32)
+        return _zeros(x, tuple(x.shape[:-1]) + (w.shape[-1],))
     return backend.conv(x, w)
 
 
@@ -98,7 +106,7 @@ def bwd_shard(backend, x, w, g) -> Tuple[np.ndarray, np.ndarray]:
     conv_shard).  An empty batch slice contributes a zero dW, which the
     master's batch-axis all-reduce sums away."""
     if w.shape[-1] == 0 or x.shape[0] == 0:
-        return np.zeros(x.shape, np.float32), np.zeros(w.shape, np.float32)
+        return _zeros(x, x.shape), _zeros(x, w.shape)
     return backend.conv_vjp(x, w, g)
 
 

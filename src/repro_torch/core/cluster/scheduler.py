@@ -33,6 +33,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core import spans
+from repro_torch.core.backends import concat
 from repro_torch.core.cluster.plans import LayerPlan, plan_conv
 
 
@@ -60,6 +61,8 @@ class TrainStepResult:
     head_aux: list                 # per-microbatch head outputs (loss, ...)
     dw: List[np.ndarray]           # kernel gradient per conv layer
     dx: np.ndarray                 # gradient wrt the chain input
+    #                                (tensors on the master's device on the
+    #                                card path, numpy arrays otherwise)
 
 
 @dataclasses.dataclass
@@ -98,6 +101,11 @@ class Pending:
     plan: Optional[LayerPlan] = None  # the split this op rode (recovery)
     parts: Optional[list] = None      # participant transports, scatter-time
     g_all: Optional[np.ndarray] = None  # bwd: full microbatch gradient
+    device: Optional[object] = None   # the card path: the master's torch
+    #                                   device, where the gather's result lies
+    x_host: Optional[np.ndarray] = None  # the input the slaves got (on the
+    #                                   card path x's host copy: the backward
+    #                                   of the same input reuses it)
 
 
 def microbatch_slices(cluster, batch: int) -> List[slice]:
@@ -276,6 +284,13 @@ def conv_train_chain(
     FIFO contract holds even though ``conv`` and ``bwd`` ops
     interleave on the wire.
 
+    Where ``x`` is a tensor on the master's device (``HeteroCluster.
+    master_device``), as are the layer weights, the master's operands
+    stay there (the card path): the stash, the dW sums and dX lie
+    there, the stages and the head take and return tensors there, and
+    only the slaves' slices cross to the host, each layer's input once
+    a microbatch for both sweeps.  Otherwise every operand is numpy.
+
     Each layer's plan splits by the devices' probe of that layer's
     geometry (``HeteroCluster.layer_probe``).  A geometry's first plan
     probes with idle links, so when layer k > 0 is new, layer k-1's
@@ -288,7 +303,7 @@ def conv_train_chain(
     assert len(between) == L
     # split along the SAME slices drivers use for labels/targets, by
     # construction (head(z, i) pairs activations with slice i)
-    x = np.asarray(x, np.float32)
+    x = cluster._operand(x)
     slices = microbatch_slices(cluster, x.shape[0])
     parts: List[np.ndarray] = [x[sl] for sl in slices]
     n = len(parts)
@@ -323,7 +338,8 @@ def conv_train_chain(
             )
         return plans[k]
 
-    stash_x: List[List[Optional[np.ndarray]]] = [[None] * n for _ in range(L)]
+    # each layer's input per microbatch, with the host copy its slaves got
+    stash_x: List[List[Optional[tuple]]] = [[None] * n for _ in range(L)]
     stash_vjp: List[List[Optional[Callable]]] = [[None] * n for _ in range(L)]
     head_aux: list = [None] * n
 
@@ -357,13 +373,10 @@ def conv_train_chain(
                 xi = early.pop(i)
             else:
                 xi = fwd_finish(k - 1, i, pend[i])
-            xi = np.asarray(xi, np.float32)
-            stash_x[k][i] = xi
-            cur.append(
-                cluster._scatter_conv_planned(
-                    xi, plan_for(k, xi), send_weights=(i == 0)
-                )
-            )
+            xi = cluster._operand(xi)
+            p = cluster._scatter_conv_planned(xi, plan_for(k, xi), send_weights=(i == 0))
+            stash_x[k][i] = (xi, p.x_host)
+            cur.append(p)
         pend = cur
 
     # ---- turnaround: finish the last fwd layer, compute the head
@@ -373,10 +386,11 @@ def conv_train_chain(
     for i in range(n):
         z = fwd_finish(L - 1, i, pend[i])
         head_aux[i], gz = cluster._master_comp(head, z, i)
-        gy = bwd_through(L - 1, i, np.asarray(gz, np.float32))
+        gy = bwd_through(L - 1, i, cluster._operand(gz))
+        xi, xh = stash_x[L - 1][i]
         cur.append(
             cluster._scatter_bwd_planned(
-                stash_x[L - 1][i], plans[L - 1], gy, send_weights=(i == 0)
+                xi, plans[L - 1], gy, send_weights=(i == 0), x_host=xh
             )
         )
     pend = cur
@@ -394,9 +408,10 @@ def conv_train_chain(
             dx_next, dw_next = cluster.gather_bwd(pend[i])
             acc_dw(k + 1, dw_next)
             gy = bwd_through(k, i, dx_next)
+            xi, xh = stash_x[k][i]
             cur.append(
                 cluster._scatter_bwd_planned(
-                    stash_x[k][i], plans[k], gy, send_weights=(i == 0)
+                    xi, plans[k], gy, send_weights=(i == 0), x_host=xh
                 )
             )
         pend = cur
@@ -411,7 +426,7 @@ def conv_train_chain(
     return TrainStepResult(
         head_aux=head_aux,
         dw=[d for d in dw],
-        dx=np.concatenate(dxs, axis=0) if n > 1 else dxs[0],
+        dx=concat(dxs, 0) if n > 1 else dxs[0],
     )
 
 
@@ -540,7 +555,9 @@ def conv_train_step(
 ) -> Tuple[List[np.ndarray], TrainStepResult]:
     """One full forward+backward ``conv_train_chain`` plus the
     optimizer step on the conv kernels: ``update(w, dw) -> new_w``
-    (None leaves the weights untouched and just returns the grads)."""
+    (None leaves the weights untouched and just returns the grads), on
+    the master's device on the card path, the span ``step.update_host``
+    either way."""
     res = conv_train_chain(cluster, x, layer_weights, between=between, head=head)
     if update is None:
         return list(layer_weights), res

@@ -21,12 +21,11 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ChainConv, ChainDense, CNNConfig, ConvChainConfig
 from repro_torch.core import spans
-from repro_torch.core.backends import drain
+from repro_torch.core.backends import drain, seam
 from repro_torch.layers.conv import apply_conv, conv_axes, init_conv, max_pool
 from repro_torch.layers.linear import apply_dense, dense_axes, init_dense
 from repro_torch.layers.norm import local_response_norm
@@ -128,10 +127,6 @@ def cnn_loss(params, images: torch.Tensor, labels: torch.Tensor, *,
     return loss, acc
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
-
-
 def conv_chain(cfg) -> ConvChainConfig:
     """``cfg`` as a chain of conv layers and a dense head: a
     ``ConvChainConfig`` as it is; the paper's ``CNNConfig`` as ``conv1``
@@ -213,8 +208,14 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
     ``ConvChainConfig`` (``conv_chain``).
 
     The master-only stages run as plain PyTorch on ``device`` (the card
-    by default) and keep the cluster's numpy-in/numpy-out contract of
-    ``between``/``head``.  Their backward halves rematerialize the
+    by default).  Where the cluster's master computes on ``device``
+    (``cluster.master_device``), the step hands the cluster the params'
+    kernels and the images on ``device``, and the stages, the head and
+    SGD on the kernels take and return tensors there: only the slaves'
+    slices leave it (the card path).  Any other master gets numpy: the
+    kernels and every activation and gradient between the cluster and
+    the stages cross to the host and back, and SGD on the kernels runs
+    in numpy.  The backward halves of the stages rematerialize the
     forward instead of holding autograd graphs across the pipeline.  The
     partition axis and the wire codec are the cluster's business: the
     step's numerics stay float32 on the master either way.
@@ -228,32 +229,37 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
     tensors on ``device``, images and labels numpy arrays or tensors.
 
     While a torch profiler records, each call is the span ``step``
-    (``core/spans.py``), and every move between the cluster's numpy and
-    ``device`` a span with its bytes: ``step.to_card``/``step.to_host``
-    for the activations and gradients of the stages and the head,
+    (``core/spans.py``), and every move between the host's numpy and
+    ``device`` a span with its bytes (``backends.seam``):
+    ``step.to_card``/``step.to_host`` for the images and for the
+    activations and gradients of the stages and the head,
     ``step.kernels_to_host``/``step.kernels_to_card`` for the conv
-    kernels around the cluster's step; ``step.head`` is each
-    microbatch's head (the bytes of its input ``z``; labels ``rows`` and
-    ``layers``, the dense layers), up to the card's drain, and
-    ``step.masks`` the dropout masks' draw and copy (their bytes).
+    kernels around the cluster's step (the host path's);
+    ``step.update_host`` is SGD on the conv kernels; ``step.head`` is
+    each microbatch's head (the bytes of its input ``z``; labels
+    ``rows`` and ``layers``, the dense layers), up to the card's drain,
+    and ``step.masks`` the dropout masks' draw and copy (their bytes).
+    Each stage and the head end on the card's drain, so the cluster's
+    ``LayerTiming.comp_s`` holds their device time.
     """
     chain = conv_chain(cfg)
     convs, dense = chain.convs, chain.dense
     dev = torch.device(device)
+    master = cluster.master_device
+    # the card path: the cluster's master computes where the params lie
+    card = master is not None and master.type == dev.type and (
+        (master.index or 0) == (dev.index or 0))
+    place = dev if card else None  # where the cluster's operands lie
     s = chain.pool_stride
     calls = [0]  # steps begun, the index of the next step's masks
 
-    def _tensor(a) -> torch.Tensor:
-        a = np.ascontiguousarray(a, np.float32)
-        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
-
-    def _moved(name, move, a):
-        """``move(a)`` (``_tensor`` or ``_host``), the span ``name``
-        with the bytes of ``a``."""
-        if isinstance(a, torch.Tensor):
-            drain(a)
-        with spans.span(name, a.nbytes):
-            return move(a)
+    def _out(name, **t):
+        """A stage's or the head's result handed to the cluster, after
+        the card's drain: as it is on the card path, else numpy (the
+        span ``name``)."""
+        for v in t.values():
+            drain(v)
+        return seam(place, name, **t)
 
     def _stage(y, b, layer):
         """The master-only block after a conv: +bias, ReLU, then LRN and
@@ -343,11 +349,7 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
     def _step(params, images, labels):
         index = calls[0]
         calls[0] += 1
-        if isinstance(images, torch.Tensor):
-            drain(images)
-            images = _host(images)
-        else:
-            images = np.asarray(images, np.float32)
+        images = seam(place, "step.to_card" if card else "step.to_host", images=images)
         labels = torch.as_tensor(labels).long().to(dev)
         batch = images.shape[0]
         slices = cluster.microbatch_slices(batch)
@@ -362,20 +364,20 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
             layer, bias = convs[k], params[convs[k].name]["bias"]
 
             def f(y):
-                y = _moved("step.to_card", _tensor, y)
+                y = seam(dev, "step.to_card", y=y)
                 z = _stage_fwd(y, bias, layer)
 
                 def pull(gz):
-                    gy, gb = _stage_bwd(y, bias, layer, _moved("step.to_card", _tensor, gz))
+                    gy, gb = _stage_bwd(y, bias, layer, seam(dev, "step.to_card", gz=gz))
                     db[k] = gb if db[k] is None else db[k] + gb
-                    return _moved("step.to_host", _host, gy)
+                    return _out("step.to_host", gy=gy)
 
-                return _moved("step.to_host", _host, z), pull
+                return _out("step.to_host", z=z), pull
             return f
 
         def head(z, i):
             sl = slices[i]
-            zt = _moved("step.to_card", _tensor, z)
+            zt = seam(dev, "step.to_card", z=z)
             with spans.span("step.head", z.nbytes, rows=sl.stop - sl.start,
                             layers=len(dense)):
                 loss_i, correct_i, gz, g = _head_both(
@@ -384,10 +386,10 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
                 drain(gz)
             head_grad[0] = g if head_grad[0] is None else {
                 n: {k: head_grad[0][n][k] + v for k, v in d.items()} for n, d in g.items()}
-            return (float(loss_i), float(correct_i)), _moved("step.to_host", _host, gz)
+            return (float(loss_i), float(correct_i)), seam(place, "step.to_host", gz=gz)
 
         between = [make_between(k) for k in range(len(convs))]
-        kernels = [_moved("step.kernels_to_host", _host, params[c.name]["kernel"])
+        kernels = [seam(place, "step.kernels_to_host", w=params[c.name]["kernel"])
                    for c in convs]
         new_kernels, res = cluster.conv_train_step(
             images, kernels, between, head,
@@ -399,7 +401,7 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
         new_params = {}
         for k, c in enumerate(convs):
             new_params[c.name] = {
-                "kernel": _moved("step.kernels_to_card", _tensor, new_kernels[k]),
+                "kernel": seam(dev, "step.kernels_to_card", w=new_kernels[k]),
                 "bias": params[c.name]["bias"] - lr * db[k],
             }
         for d in dense:

@@ -362,6 +362,67 @@ def test_cuda_backend_backward_through_the_cluster(dev, partition):
     np.testing.assert_allclose(dw, dw_want, atol=1e-3, rtol=1e-5)
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,k", [(2, 16, 16, 8, 24, 5), (4, 32, 32, 3, 500, 5),
+                                             (4, 16, 16, 500, 1500, 5), (2, 8, 8, 4, 0, 3)])
+def test_cuda_backend_on_card_operands_equals_its_numpy_path(dev, b, h, w, cin, cout, k):
+    """Tensors on the card in, tensors on the card out, bitwise the numpy
+    path's (the same kernels on the same operands)."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    g = rng.standard_normal((b, h, w, cout)).astype(np.float32)
+    backend = get_backend("cuda")
+    y = backend.conv(x, wt)
+    dx, dw = backend.conv_vjp(x, wt, g)
+    on = [torch.from_numpy(a).to(dev) for a in (x, wt, g)]
+    ty = backend.conv(on[0], on[1])
+    tdx, tdw = backend.conv_vjp(*on)
+    for a, t in ((y, ty), (dx, tdx), (dw, tdw)):
+        assert isinstance(a, np.ndarray) and t.device == dev
+        np.testing.assert_array_equal(a, t.cpu().numpy())
+
+
+def _cuda_steps(dev, backends, card, steps=3, batch=8):
+    """``make_cluster_train_step`` at C1 8, C2 16 from seed-0 params, with
+    pinned probe times and no comp-aware discount: the card path, or the
+    host path (the same master handed numpy)."""
+    from repro_torch.models.cnn import init_cnn, make_cluster_train_step, make_cnn_config
+
+    cfg = make_cnn_config(8, 16)
+    params = init_cnn(torch.Generator().manual_seed(0), cfg, dev)
+    rng = np.random.default_rng(4)
+    c = HeteroCluster([1.0] * len(backends), backends, pipeline=True, microbatches=2,
+                      comp_aware=False)
+    try:
+        c.probe_times = [1.0, 2.0][:len(backends)]
+        if not card:
+            c.master_device = None
+        step = make_cluster_train_step(c, cfg, lr=0.05, device="cuda")
+        losses = []
+        for _ in range(steps):
+            x = rng.standard_normal((batch, 32, 32, 3), dtype=np.float32)
+            y = rng.integers(0, 10, batch).astype(np.int32)
+            params, loss, _ = step(params, x, y)
+            losses.append(loss)
+    finally:
+        c.shutdown()
+    return losses, {f"{l}.{n}": v.cpu().numpy() for l, d in params.items()
+                    for n, v in d.items()}
+
+
+@pytest.mark.parametrize("backends", [["cuda"], ["cuda", "numpy"]])
+def test_a_cuda_master_step_on_the_card_path_equals_the_host_path(dev, backends):
+    """The master's shard on card tensors: the same kernels on the same
+    operands, the same float32 sums in the same order, so three steps
+    are bitwise the host path's."""
+    assert get_backend("cuda").device == dev
+    card_losses, card = _cuda_steps(dev, backends, card=True)
+    host_losses, host = _cuda_steps(dev, backends, card=False)
+    assert card_losses == host_losses
+    for k in host:
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+
+
 def test_cuda_hierarchy_matches_float64_and_reruns_bit_identical(dev):
     """An in-process ``HierarchicalCluster("2x2")`` whose five devices all
     take the default ``cuda`` backend, at tests/test_hierarchy.py's
