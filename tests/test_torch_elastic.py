@@ -89,14 +89,16 @@ def test_evict_admit_train_chain_matches_vjp(kind, partition):
 
 
 @pytest.mark.parametrize("kind", TRANSPORTS)
-def test_graceful_evict_mid_step_drains_on_survivors(kind):
+@pytest.mark.parametrize("partition", ("kernel", "spatial", "batch"))
+def test_graceful_evict_mid_step_drains_on_survivors(partition, kind):
     """evict() while ops are in flight: the live plans keep naming the
-    retiree, the master absorbs its shards, the step's numerics hold,
-    and the NEXT plans cover only the survivors."""
+    retiree, the master absorbs its shards (its channels, strips or
+    rows), the step's numerics hold, and the NEXT plans cover only the
+    survivors."""
     x, w1, w2, g = data(seed=6)
     want = single_device_grads(x, w1, w2, g)
-    c, jc = clusters([1.0, 1.0, 1.0], transport=kind, pipeline=True,
-                     microbatches=3)
+    c, jc = clusters([1.0, 1.0, 1.0], transport=kind, partition=partition,
+                     pipeline=True, microbatches=3)
     try:
         results = []
         for cl in (c, jc):
