@@ -3276,13 +3276,12 @@ class ShardLog:
         self._saved = [(m, name, getattr(m, name)) for m, name in (
             (protocol, "slave_loop"), (protocol, "conv_shard"), (protocol, "bwd_shard"),
             (backends, "strip_conv"), (backends, "strip_conv_vjp"),
-            (cluster, "strip_conv"), (cluster, "strip_conv_vjp"),
             (backends, "probe_conv_time"), (cluster, "probe_conv_time"))]
         protocol.slave_loop = slave_loop
         protocol.conv_shard = self._counted(protocol.conv_shard, "fwd", False)
         protocol.bwd_shard = self._counted(protocol.bwd_shard, "bwd", False)
-        backends.strip_conv = cluster.strip_conv = self._counted(fwd, "fwd", True)
-        backends.strip_conv_vjp = cluster.strip_conv_vjp = self._counted(bwd, "bwd", True)
+        backends.strip_conv = self._counted(fwd, "fwd", True)
+        backends.strip_conv_vjp = self._counted(bwd, "bwd", True)
         backends.probe_conv_time = self._probe(backends.probe_conv_time)
         cluster.probe_conv_time = self._probe(cluster.probe_conv_time)
         return self

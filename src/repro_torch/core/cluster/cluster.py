@@ -77,15 +77,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.core import spans
-from repro_torch.core.backends import (
-    concat,
-    get_backend,
-    is_tensor,
-    probe_conv_time,
-    seam,
-    strip_conv,
-    strip_conv_vjp,
-)
+from repro_torch.core.backends import get_backend, is_tensor, probe_conv_time, seam
 from repro_torch.core.cluster import codec, plans, protocol, scheduler
 from repro_torch.core.cluster.transport import (
     TRANSPORT_KINDS,
@@ -1215,8 +1207,8 @@ class HeteroCluster:
         return np.asarray(a, np.float32)
 
     def _slave_x(self, x, plan: plans.LayerPlan, x_host):
-        """The input a kernel-axis op hands its slaves: ``x`` itself on
-        the host path.  On the card path x's host copy: the forward's
+        """The input an op hands its slaves: ``x`` itself on the host
+        path.  On the card path x's host copy: the forward's
         (``x_host``) where given, else made here (the span
         ``cluster.to_host``) where a slave holds kernels, else a
         zero-stride stand-in of x's shape (a slave without kernels reads
@@ -1233,132 +1225,31 @@ class HeteroCluster:
         self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool,
         x_host=None,
     ) -> scheduler.Pending:
-        """The op's scatter.  With ``x`` a tensor on the master's device
-        (the card path) the kernel axis computes the master's shard on
-        it and hands the slaves its host copy; the spatial and batch
-        axes run their host path on that copy, and their gather hands
-        back a tensor.  ``x_host``: the host copy an earlier op of the
-        same input made (the backward reuses the forward's)."""
-        device = self._card(x)
-        if plan.mode == "kernel":
-            p = self._scatter_conv_shards(x, plan, send_weights, x_host)
-        else:
-            if device is not None:
-                x = x_host if x_host is not None else seam(None, "cluster.to_host", x=x)
-            scatter = (self._scatter_conv_batch if plan.mode == "batch"
-                       else self._scatter_conv_strips)
-            p = scatter(x, plan, send_weights)
-            p.x_host = x
-        p.device = device
-        return p
-
-    def _scatter_conv_strips(
-        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool
-    ) -> scheduler.Pending:
-        socks = self._plan_sockets(plan)
-        t0 = time.perf_counter()
-        for pos, (sock, (lo, hi, pt, pb)) in enumerate(
-            zip(socks, plan.halos[1:]), start=1
-        ):
-            ws = self._wire_weights(sock, plan, pos, plan.w, send_weights)
-            self._write_op(sock, ("sconv", (x[:, lo:hi], ws, pt, pb)))
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        return scheduler.Pending(
-            "conv", self._seq_issued, x, plan.w, None, now,
-            mode="spatial", rows=plan.rows, halos=plan.halos,
-            plan=plan, parts=socks,
-        )
-
-    def _scatter_conv_shards(
-        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool,
-        x_host=None,
-    ) -> scheduler.Pending:
-        """send_weights=False sends w=None: the slave reuses its cached
-        shard, so pipelined microbatches pay the weight traffic once."""
-        socks = self._plan_sockets(plan)
-        t0 = time.perf_counter()
-        xs = self._slave_x(x, plan, x_host)
-        for pos, (sock, shard) in enumerate(
-            zip(socks, plan.shards[1:]), start=1
-        ):
-            ws = self._wire_weights(sock, plan, pos, shard, send_weights)
-            self._write_op(sock, ("conv", (xs, ws)))
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        return scheduler.Pending(
-            "conv", self._seq_issued, x, plan.shards[0], None, now,
-            plan=plan, parts=socks, x_host=xs,
-        )
-
-    def _scatter_conv_batch(
-        self, x: np.ndarray, plan: plans.LayerPlan, send_weights: bool
-    ) -> scheduler.Pending:
-        """Batch axis: each member gets its N-axis row slice plus the
-        full replicated kernel (a ~24-byte ``WeightRef`` token after the
-        first ship, weight cache on).  The plan's proportions are re-cut
-        to THIS slab's batch size (``plans.batch_ranges``) so pipelined
-        microbatches — whose N differs from the planning shape — keep
-        the Eq. 1 shares; the actual ranges ride the ``Pending`` for the
-        gather and the lost-slave recovery path."""
-        socks = self._plan_sockets(plan)
-        rows = plans.batch_ranges(plan.counts, x.shape[0])
-        t0 = time.perf_counter()
-        for pos, (sock, (r0, r1)) in enumerate(zip(socks, rows[1:]), start=1):
-            ws = self._wire_weights(sock, plan, pos, plan.w, send_weights)
-            self._write_op(sock, ("conv", (x[r0:r1], ws)))
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        return scheduler.Pending(
-            "conv", self._seq_issued, x, plan.w, None, now,
-            mode="batch", rows=rows, plan=plan, parts=socks,
-        )
+        """The op's scatter; ``send_weights=False`` sends w=None: the
+        slave reuses its cached kernel, so pipelined microbatches pay the
+        weight traffic once.  With ``x`` a tensor on the master's device
+        (the card path), an axis whose master computes on the card
+        (``plans.axis(plan).card``) keeps x there and hands the slaves
+        its host copy; the other axes run their host path on that copy,
+        and their gather hands back a tensor.  ``x_host``: the host copy
+        an earlier op of the same input made (the backward reuses the
+        forward's)."""
+        return self._scatter("conv", x, None, plan, send_weights, x_host)
 
     def gather_conv(self, p: scheduler.Pending) -> np.ndarray:
-        """Compute the master's shard, collect the slaves' feature maps
-        (FIFO: gathers must be issued in scatter order), concatenate —
-        along channels (kernel mode), height (spatial strips), or the
-        N axis (batch rows).  A participant lost since the scatter
-        contributes via the master's recovery compute instead of the
-        wire.  On the card path the result lies on the master's device:
-        the kernel axis brings each slave's channels there and
-        concatenates there."""
-        self._check_order(p, "conv")
-        t0 = time.perf_counter()
-        if p.mode == "spatial":
-            lo, hi, pt, pb = p.halos[0]
-            my_out = self._master_compute(
-                lambda: strip_conv(self._master_backend, p.x[:, lo:hi], p.my_w, pt, pb), p
-            )
-            axis = 1
-        elif p.mode == "batch":
-            r0, r1 = p.rows[0]
-            my_out = self._master_compute(
-                lambda: protocol.conv_shard(
-                    self._master_backend, p.x[r0:r1], p.my_w
-                ), p
-            )
-            axis = 0
-        else:
-            my_out = self._master_compute(
-                lambda: protocol.conv_shard(self._master_backend, p.x, p.my_w), p
-            )
-            axis = -1
-        outs = [my_out]
-        t_wait = time.perf_counter()
-        for idx, sock in enumerate(p.parts):
-            outs.append(self._read_or_recover(sock, p, idx))
-        t1 = time.perf_counter()
-        self._account_gather(p, t0, t_wait, t1)
-        if p.mode != "kernel":  # the host path ran: its result to the master
-            return seam(p.device, "cluster.to_card", y=np.concatenate(outs, axis=axis))
-        return concat([seam(p.device, "cluster.to_card", y=y) for y in outs], axis)
+        """Compute the master's part, collect the slaves' feature maps
+        (FIFO: gathers must be issued in scatter order) and put them
+        together by the axis rule: along channels (kernel axis), height
+        (spatial strips) or the N axis (batch rows).  A participant lost
+        since the scatter contributes via the master's recovery compute
+        instead of the wire.  On the card path the result lies on the
+        master's device: where the master computed its part there, each
+        slave's part is brought there and joined there."""
+        rule, ys = self._gather(p, "conv")
+        if rule.card:
+            ys[1:] = [seam(p.device, "cluster.to_card", y=y) for y in ys[1:]]
+            return rule.assemble(p.plan, "conv", ys, p.x)
+        return seam(p.device, "cluster.to_card", y=rule.assemble(p.plan, "conv", ys, p.x))
 
     def scatter_bwd(
         self, x: np.ndarray, w: np.ndarray, g: np.ndarray,
@@ -1387,154 +1278,69 @@ class HeteroCluster:
         send_weights: bool, x_host=None,
     ) -> scheduler.Pending:
         """The VJP's scatter; the card path as ``_scatter_conv_planned``
-        has it, ``x_host`` the forward's host copy of ``x``."""
-        device = self._card(x)
-        if plan.mode == "kernel":
-            p = self._scatter_bwd_shards(x, plan, g, send_weights, x_host)
-        else:
-            if device is not None:
-                x = x_host if x_host is not None else seam(None, "cluster.to_host", x=x)
-                g = seam(None, "cluster.to_host", g=g)
-            scatter = (self._scatter_bwd_batch if plan.mode == "batch"
-                       else self._scatter_bwd_strips)
-            p = scatter(x, plan, g, send_weights)
-        p.device = device
-        return p
-
-    def _scatter_bwd_strips(
-        self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
-        send_weights: bool,
-    ) -> scheduler.Pending:
-        socks = self._plan_sockets(plan)
-        t0 = time.perf_counter()
-        for pos, (sock, (r0, r1), (lo, hi, pt, pb)) in enumerate(
-            zip(socks, plan.rows[1:], plan.halos[1:]), start=1
-        ):
-            ws = self._wire_weights(sock, plan, pos, plan.w, send_weights)
-            self._write_op(
-                sock, ("sbwd", (x[:, lo:hi], ws, g[:, r0:r1], pt, pb))
-            )
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        r0, r1 = plan.rows[0]
-        return scheduler.Pending(
-            "bwd", self._seq_issued, x, plan.w, g[:, r0:r1], now,
-            mode="spatial", rows=plan.rows, halos=plan.halos,
-            plan=plan, parts=socks, g_all=g,
-        )
-
-    def _scatter_bwd_batch(
-        self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
-        send_weights: bool,
-    ) -> scheduler.Pending:
-        """Batch-axis backward: each member VJPs its own rows (x slice,
-        full kernel, matching g slice) and returns (dX rows, FULL dW) —
-        the master sums the per-member dW into an exact all-reduce at
-        the gather.  Rows are re-cut to this slab like the forward."""
-        socks = self._plan_sockets(plan)
-        rows = plans.batch_ranges(plan.counts, x.shape[0])
-        t0 = time.perf_counter()
-        for pos, (sock, (r0, r1)) in enumerate(zip(socks, rows[1:]), start=1):
-            ws = self._wire_weights(sock, plan, pos, plan.w, send_weights)
-            self._write_op(sock, ("bwd", (x[r0:r1], ws, g[r0:r1])))
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        r0, r1 = rows[0]
-        return scheduler.Pending(
-            "bwd", self._seq_issued, x, plan.w, g[r0:r1], now,
-            mode="batch", rows=rows, plan=plan, parts=socks, g_all=g,
-        )
-
-    def _scatter_bwd_shards(
-        self, x: np.ndarray, plan: plans.LayerPlan, g: np.ndarray,
-        send_weights: bool, x_host=None,
-    ) -> scheduler.Pending:
-        """On the card path the master's gradient slice is contiguous on
-        its device and a slave's slice crosses to the host where it
-        holds kernels."""
-        socks = self._plan_sockets(plan)
-        g_shards = self._split(g, plan.counts)
-        t0 = time.perf_counter()
-        xs = self._slave_x(x, plan, x_host)
-        for pos, (sock, shard, gs) in enumerate(
-            zip(socks, plan.shards[1:], g_shards[1:]), start=1
-        ):
-            ws = self._wire_weights(sock, plan, pos, shard, send_weights)
-            self._write_op(sock, ("bwd", (xs, ws, seam(None, "cluster.to_host", g=gs))))
-        now = time.perf_counter()
-        self.timing.comm_s += now - t0
-        spans.record("cluster.scatter", t0, now)
-        self._seq_issued += 1
-        return scheduler.Pending(
-            "bwd", self._seq_issued, x, plan.shards[0], g_shards[0], now,
-            plan=plan, parts=socks, g_all=g, x_host=xs,
-        )
+        has it, ``x_host`` the forward's host copy of ``x``.  Where the
+        master computes on the card, each slave's slice of ``g`` crosses
+        to the host on its own."""
+        return self._scatter("bwd", x, g, plan, send_weights, x_host)
 
     def gather_bwd(self, p: scheduler.Pending) -> Tuple[np.ndarray, np.ndarray]:
-        """Master's shard VJP + gather.  Kernel mode: sum partial dX,
-        concat dW shards.  Spatial mode: overlap-ADD each device's halo'd
-        dX rows into the full dX (the seam sums) and SUM the full-kernel
-        dW contributions.  Batch mode: concat dX rows along the N axis
-        and SUM the per-member full dW — dW is a sum over disjoint batch
-        rows, so the reduction is exact.  Lost participants'
-        contributions come from the master's recovery compute.  On the
-        card path both results lie on the master's device: the kernel
-        axis brings each slave's there, sums dX and concatenates dW
-        there."""
-        self._check_order(p, "bwd")
+        """The VJP's gather, as ``gather_conv`` has it: ``(dX, dW)``
+        put together by the axis rule (``plans.axis``: partial dX summed
+        or strips overlap-added or rows joined; dW shards joined or
+        full-kernel parts summed)."""
+        rule, parts = self._gather(p, "bwd")
+        if rule.card:
+            parts[1:] = [seam(p.device, "cluster.to_card", dx=dx, dw=dw)
+                         for dx, dw in parts[1:]]
+            return rule.assemble(p.plan, "bwd", parts, p.x)
+        dx, dw = rule.assemble(p.plan, "bwd", parts, p.x)
+        return seam(p.device, "cluster.to_card", dx=dx, dw=dw)
+
+    def _scatter(
+        self, op: str, x, g, plan: plans.LayerPlan, send_weights: bool, x_host,
+    ) -> scheduler.Pending:
+        """Send each slave its message (``plans.axis``): member k's part
+        of the op, its weight slot as ``_wire_weights`` ships it and its
+        operands on the host.  An axis whose master does not compute on
+        the card converts x and g at the op's boundary first."""
+        rule = plans.axis(plan)
+        device = self._card(x)
+        if device is not None and not rule.card:
+            x = x_host if x_host is not None else seam(None, "cluster.to_host", x=x)
+            if g is not None:
+                g = seam(None, "cluster.to_host", g=g)
+        socks = self._plan_sockets(plan)
+        cut = rule.cut(plan, op, x, g)
         t0 = time.perf_counter()
-        if p.mode == "batch":
-            r0, r1 = p.rows[0]
-            dx0, dw = self._master_compute(
-                lambda: protocol.bwd_shard(
-                    self._master_backend, p.x[r0:r1], p.my_w, p.my_g
-                ), p
-            )
-            dxs = [dx0]
-            t_wait = time.perf_counter()
-            for idx, sock in enumerate(p.parts):
-                dx_i, dw_i = self._read_or_recover(sock, p, idx)
-                dxs.append(dx_i)
-                dw = dw + dw_i
-            t1 = time.perf_counter()
-            self._account_gather(p, t0, t_wait, t1)
-            dx = np.concatenate(dxs, axis=0)
-            return seam(p.device, "cluster.to_card", dx=dx, dw=dw)
-        if p.mode == "spatial":
-            lo, hi, pt, pb = p.halos[0]
-            dxh, dw = self._master_compute(
-                lambda: strip_conv_vjp(
-                    self._master_backend, p.x[:, lo:hi], p.my_w, p.my_g, pt, pb
-                ), p
-            )
-            dx = np.zeros(p.x.shape, np.float32)
-            dx[:, lo:hi] += dxh
-            t_wait = time.perf_counter()
-            for idx, sock in enumerate(p.parts):
-                dxh_i, dw_i = self._read_or_recover(sock, p, idx)
-                lo_i, hi_i, _pt, _pb = p.halos[idx + 1]
-                dx[:, lo_i:hi_i] += dxh_i  # the halo seams overlap-sum here
-                dw = dw + dw_i
-            t1 = time.perf_counter()
-            self._account_gather(p, t0, t_wait, t1)
-            return seam(p.device, "cluster.to_card", dx=dx, dw=dw)
-        dx, dw0 = self._master_compute(
-            lambda: protocol.bwd_shard(self._master_backend, p.x, p.my_w, p.my_g), p
+        xs = self._slave_x(x, plan, x_host)
+        for pos, sock in enumerate(socks, start=1):
+            wire_op, (xk, wk, *rest) = rule.message(plan, op, pos, xs, g, cut)
+            wk = self._wire_weights(sock, plan, pos, wk, send_weights)
+            if g is not None:  # its slice of g (slot 2) crosses on its own
+                rest[0] = seam(None, "cluster.to_host", g=rest[0])
+            self._write_op(sock, (wire_op, (xk, wk, *rest)))
+        now = time.perf_counter()
+        self.timing.comm_s += now - t0
+        spans.record("cluster.scatter", t0, now)
+        self._seq_issued += 1
+        return scheduler.Pending(
+            op, self._seq_issued, x, g, cut, now, plan, socks,
+            device=device, x_host=xs,
         )
-        dws = [dw0]
+
+    def _gather(self, p: scheduler.Pending, op: str):
+        """(the op's axis rule, every member's result in device order):
+        the master's own part, then each slave's, read from its link or
+        recomputed."""
+        self._check_order(p, op)
+        t0 = time.perf_counter()
+        parts = [self._master_compute(p)]
         t_wait = time.perf_counter()
-        got = [self._read_or_recover(sock, p, idx) for idx, sock in enumerate(p.parts)]
+        parts += [self._read_or_recover(sock, p, idx)
+                  for idx, sock in enumerate(p.parts)]
         t1 = time.perf_counter()
         self._account_gather(p, t0, t_wait, t1)
-        for dxi, dwi in got:  # in device order, where the master's shard lies
-            dxi, dwi = seam(p.device, "cluster.to_card", dx=dxi, dw=dwi)
-            dx = dx + dxi
-            dws.append(dwi)
-        return dx, concat(dws, -1)
+        return plans.axis(p.plan), parts
 
     def _check_result(self, out):
         """Re-raise a slave's shipped exception at the gather that would
@@ -1562,56 +1368,14 @@ class HeteroCluster:
         return self._recover_shard(p, idx + 1)
 
     def _recover_shard(self, p: scheduler.Pending, dev_pos: int):
-        """Compute plan position ``dev_pos``'s shard of the pending op
-        on the master's own backend — the recovery path for a member
-        that died between scatter and gather.  Batch mode recomputes the
-        dead member's ROWS from the ranges the op actually shipped
-        (``p.rows``, re-cut per slab), not the plan's full-batch
-        ranges."""
-        plan = p.plan
-        t0 = time.perf_counter()
-        if p.op == "conv":
-            if plan.mode == "kernel":
-                out = protocol.conv_shard(
-                    self._master_backend, p.x, plan.shards[dev_pos]
-                )
-            elif plan.mode == "batch":
-                r0, r1 = p.rows[dev_pos]
-                out = protocol.conv_shard(
-                    self._master_backend, p.x[r0:r1], plan.w
-                )
-            else:
-                lo, hi, pt, pb = plan.halos[dev_pos]
-                out = strip_conv(
-                    self._master_backend, p.x[:, lo:hi], plan.w, pt, pb
-                )
-        else:
-            if plan.mode == "kernel":
-                gs = plans.split_kernels(p.g_all, plan.counts)
-                out = protocol.bwd_shard(
-                    self._master_backend, p.x, plan.shards[dev_pos],
-                    gs[dev_pos],
-                )
-            elif plan.mode == "batch":
-                r0, r1 = p.rows[dev_pos]
-                out = protocol.bwd_shard(
-                    self._master_backend, p.x[r0:r1], plan.w,
-                    p.g_all[r0:r1],
-                )
-            else:
-                r0, r1 = plan.rows[dev_pos]
-                lo, hi, pt, pb = plan.halos[dev_pos]
-                out = strip_conv_vjp(
-                    self._master_backend, p.x[:, lo:hi], plan.w,
-                    p.g_all[:, r0:r1], pt, pb,
-                )
-        el = time.perf_counter() - t0
-        if self.slowdowns[0] > 1.0:
-            # reprolint: allow=clock-injection -- slowdown emulation IS a real delay: it stretches measured compute to the emulated device's speed
-            time.sleep(el * (self.slowdowns[0] - 1.0))
-        t1 = time.perf_counter()
-        self.timing.recompute_s += t1 - t0
-        spans.record("cluster.recover", t0, t1)
+        """Compute plan position ``dev_pos``'s part of the pending op on
+        the master's own backend — the recovery path for a member that
+        died between scatter and gather — as its message, built from the
+        op's operands and cut as the master holds them (on the batch
+        axis, the rows the op actually shipped, re-cut per slab), timed
+        into ``LayerTiming.recompute_s`` (the span ``cluster.recover``)."""
+        out, seconds = self._run_member(p, dev_pos, "cluster.recover")
+        self.timing.recompute_s += seconds
         return out
 
     def _check_order(self, p: scheduler.Pending, op: str):
@@ -1627,22 +1391,33 @@ class HeteroCluster:
             )
         self._seq_gathered = p.seq
 
-    def _master_compute(self, fn, p: scheduler.Pending):
-        """``fn()``, the master's own shard of ``p``: the span
-        ``cluster.master_shard`` (label ``operands``: ``card`` where the
-        shard is computed on the master's device, ``host`` where on
-        numpy), timed into ``LayerTiming.master_conv_s``."""
+    def _master_compute(self, p: scheduler.Pending):
+        """Member 0's part of ``p``, the master's own shard: the span
+        ``cluster.master_shard`` (label ``operands``: ``card`` where its
+        operands lie on the master's device, ``host`` where on numpy),
+        timed into ``LayerTiming.master_conv_s``."""
+        out, seconds = self._run_member(
+            p, 0, "cluster.master_shard",
+            operands="card" if self._card(p.x) is not None else "host",
+        )
+        self.timing.master_conv_s += seconds
+        return out
+
+    def _run_member(self, p: scheduler.Pending, pos: int, span: str, **labels):
+        """Member ``pos``'s message of ``p`` run on the master's backend
+        (``protocol.run_op``), stretched to the master's emulated
+        slowdown and recorded as the span ``span``: (its result, the
+        seconds it took)."""
         t0 = time.perf_counter()
-        out = fn()
+        op, operands = plans.axis(p.plan).message(p.plan, p.op, pos, p.x, p.g, p.cut)
+        out = protocol.run_op(self._master_backend, op, operands)
         el = time.perf_counter() - t0
         if self.slowdowns[0] > 1.0:
             # reprolint: allow=clock-injection -- slowdown emulation IS a real delay: it stretches measured compute to the emulated device's speed
             time.sleep(el * (self.slowdowns[0] - 1.0))
         t1 = time.perf_counter()
-        self.timing.master_conv_s += t1 - t0
-        spans.record("cluster.master_shard", t0, t1, operands=(
-            "card" if p.device is not None and p.mode == "kernel" else "host"))
-        return out
+        spans.record(span, t0, t1, **labels)
+        return out, t1 - t0
 
     def _account_gather(self, p: scheduler.Pending, t0, t_wait, t1):
         self.timing.conv_s += t1 - t0

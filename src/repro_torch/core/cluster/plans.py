@@ -7,7 +7,9 @@ the N axis, sum the per-slave dW — an exact all-reduce), or pick the
 cheapest axis per layer ("auto") from the comm-extended Eq. 1
 prediction.  This module holds the pure planning math — strip/halo
 geometry, batch-row ranges, per-unit wire bytes, the wall-clock
-predictor and the axis resolver — over a duck-typed ``cluster`` that
+predictor and the axis resolver, and what each axis means for an op
+(``axis``: a member's message, and the assembly of the members'
+results) — over a duck-typed ``cluster`` that
 supplies device state (``_effective_times``, ``shares_for``,
 ``bandwidths``, ``probe_flops``, ``_wire_itemsize``, ``partition``,
 ``partition_choices``).  No transport, no threads; each plan is a span
@@ -18,13 +20,15 @@ take its host copy (the span ``cluster.to_host``).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import spans
-from repro_torch.core.backends import is_tensor, seam
+from repro_torch.core.backends import concat, is_tensor, seam
 
 PARTITION_MODES = ("kernel", "spatial", "batch", "auto")
 # the FLOPs of what a plan governs, in forward passes of the layer: the
@@ -149,6 +153,106 @@ def split_kernels(w: np.ndarray, counts: np.ndarray) -> List[np.ndarray]:
         return [s.contiguous() for s in w.split([int(c) for c in counts], dim=-1)]
     edges = np.cumsum(counts)[:-1]
     return [np.ascontiguousarray(s) for s in np.split(w, edges, axis=-1)]
+
+
+def _sum(terms):
+    """The terms added in their order (device order)."""
+    return functools.reduce(operator.add, terms)
+
+
+class _Axis:
+    """What a partition axis means for one op (``"conv"`` or ``"bwd"``).
+
+    ``message(plan, op, k, x, g, cut)`` is member k's part of the op,
+    ``(wire op, operands)`` with the kernel or its shard in operand
+    slot 1, built from the slab ``x`` (and the gradient ``g``) as that
+    member takes it; ``cut`` is what ``cut(plan, op, x, g)`` derives once
+    per op from the slab.  ``assemble(plan, op, parts, x)`` puts the
+    members' results, in device order, back together.
+
+    ``card``: whether the master computes its part on the op's own
+    operands, card tensors on the card path; each slave's result then
+    crosses to the card before the assembly.  Otherwise the op's x and g
+    cross to the host at its boundary, and every part is computed and
+    assembled there."""
+
+    card = False
+
+    def cut(self, plan, op, x, g):
+        return None
+
+
+class _KernelAxis(_Axis):
+    """Output channels: every member convolves the whole x with its
+    kernel shard (and its slice of g's channels); y and dW concatenate
+    on the channels, the partial dX sum."""
+
+    card = True
+
+    def cut(self, plan, op, x, g):
+        return None if op == "conv" else split_kernels(g, plan.counts)
+
+    def message(self, plan, op, k, x, g, cut):
+        if op == "conv":
+            return "conv", (x, plan.shards[k])
+        return "bwd", (x, plan.shards[k], cut[k])
+
+    def assemble(self, plan, op, parts, x):
+        if op == "conv":
+            return concat(parts, -1)
+        return _sum(dx for dx, _ in parts), concat([dw for _, dw in parts], -1)
+
+
+class _SpatialAxis(_Axis):
+    """Height strips: member k convolves its rows of x with their halo
+    and the full kernel (the ops ``sconv``/``sbwd``); y's strips
+    concatenate on the height, the halo'd dX overlap-add into zeros and
+    dW sums."""
+
+    def message(self, plan, op, k, x, g, cut):
+        lo, hi, pt, pb = plan.halos[k]
+        if op == "conv":
+            return "sconv", (x[:, lo:hi], plan.w, pt, pb)
+        r0, r1 = plan.rows[k]
+        return "sbwd", (x[:, lo:hi], plan.w, g[:, r0:r1], pt, pb)
+
+    def assemble(self, plan, op, parts, x):
+        if op == "conv":
+            return concat(parts, 1)
+        dx = np.zeros(x.shape, np.float32)
+        for (dxh, _), (lo, hi, _, _) in zip(parts, plan.halos):
+            dx[:, lo:hi] += dxh  # the halo seams overlap-sum here
+        return dx, _sum(dw for _, dw in parts)
+
+
+class _BatchAxis(_Axis):
+    """Sample rows: member k convolves its rows of x (and of g) with the
+    full kernel, the plan's shares re-cut to this slab's rows by
+    ``batch_ranges`` (a microbatch's N differs from the planning
+    shape); y and dX concatenate on the rows, and dW sums, an exact
+    all-reduce over disjoint rows."""
+
+    def cut(self, plan, op, x, g):
+        return batch_ranges(plan.counts, x.shape[0])
+
+    def message(self, plan, op, k, x, g, cut):
+        r0, r1 = cut[k]
+        if op == "conv":
+            return "conv", (x[r0:r1], plan.w)
+        return "bwd", (x[r0:r1], plan.w, g[r0:r1])
+
+    def assemble(self, plan, op, parts, x):
+        if op == "conv":
+            return concat(parts, 0)
+        return concat([dx for dx, _ in parts], 0), _sum(dw for _, dw in parts)
+
+
+AXES = {"kernel": _KernelAxis(), "spatial": _SpatialAxis(), "batch": _BatchAxis()}
+
+
+def axis(plan: LayerPlan) -> _Axis:
+    """The rule of the axis ``plan`` splits on."""
+    return AXES[plan.mode]
 
 
 def unit_bytes(

@@ -68,7 +68,7 @@ from typing import Tuple
 
 import numpy as np
 
-from repro_torch.core import spans
+from repro_torch.core import backends, spans
 from repro_torch.core.cluster.codec import WeightRef
 
 TRAIN_OVER = "trainOver"
@@ -108,6 +108,22 @@ def bwd_shard(backend, x, w, g) -> Tuple[np.ndarray, np.ndarray]:
     if w.shape[-1] == 0 or x.shape[0] == 0:
         return _zeros(x, x.shape), _zeros(x, w.shape)
     return backend.conv_vjp(x, w, g)
+
+
+def run_op(backend, op: str, operands: tuple):
+    """One member's part of an op: the wire op ``op`` on ``operands``,
+    its kernel resolved in slot 1, on ``backend`` — what a slave answers
+    a message with, and what the master computes for its own part and
+    for a lost member's."""
+    if op == "conv":
+        return conv_shard(backend, *operands)
+    if op == "bwd":
+        return bwd_shard(backend, *operands)
+    if op == "sconv":  # spatial: a height strip + halo, full kernel
+        return backends.strip_conv(backend, *operands)
+    if op == "sbwd":  # spatial backward: halo dX + full-kernel dW
+        return backends.strip_conv_vjp(backend, *operands)
+    raise ValueError(f"unknown op {op}")
 
 
 def _resolve_weights(w, op: str, cached_w: dict, wcache: dict):
@@ -167,39 +183,17 @@ def slave_loop(endpoint, slowdown: float, backend_name: str, device: int):
             continue
         try:
             if backend is None:
-                from repro_torch.core.backends import get_backend
-
-                backend = get_backend(backend_name)
+                backend = backends.get_backend(backend_name)
             if op == "probe":
-                from repro_torch.core.backends import probe_conv_time
-
                 endpoint.send(
-                    probe_conv_time(backend, slowdown=slowdown, **payload)
+                    backends.probe_conv_time(backend, slowdown=slowdown, **payload)
                 )
                 continue
             t0 = time.perf_counter()
-            if op == "conv":
-                x, w = payload
-                w = _resolve_weights(w, op, cached_w, wcache)
-                out = conv_shard(backend, x, w)
-            elif op == "bwd":
-                x, w, g = payload
-                w = _resolve_weights(w, op, cached_w, wcache)
-                out = bwd_shard(backend, x, w, g)
-            elif op == "sconv":  # spatial: a height strip + halo, full kernel
-                from repro_torch.core.backends import strip_conv
-
-                xh, w, pt, pb = payload
-                w = _resolve_weights(w, op, cached_w, wcache)
-                out = strip_conv(backend, xh, w, pt, pb)
-            elif op == "sbwd":  # spatial backward: halo dX + full-kernel dW
-                from repro_torch.core.backends import strip_conv_vjp
-
-                xh, w, g, pt, pb = payload
-                w = _resolve_weights(w, op, cached_w, wcache)
-                out = strip_conv_vjp(backend, xh, w, g, pt, pb)
-            else:  # pragma: no cover
-                raise ValueError(f"unknown op {op}")
+            x, w, *rest = payload
+            out = run_op(
+                backend, op, (x, _resolve_weights(w, op, cached_w, wcache), *rest)
+            )
             t1 = time.perf_counter()
             if spans.recording():
                 spans.record("device.shard", t0, t1, device=device,

@@ -67,40 +67,27 @@ class TrainStepResult:
 
 @dataclasses.dataclass
 class Pending:
-    """An in-flight scatter: the master's own shard is deferred to the
+    """An in-flight scatter: the master's own part is deferred to the
     gather so issuing the NEXT scatter never waits on local compute.
 
     An elastic cluster may lose a slave between this scatter and its
-    gather, so a Pending carries enough to finish WITHOUT that slave:
-    ``plan`` (the full split, every device's shard derivable), ``parts``
-    (the participant links, frozen at scatter time — membership lists
-    may have shrunk by gather time), and ``g_all`` (backward only: the
-    whole microbatch gradient, so any member's slice can be recut).
-    The gather reads live participants and recomputes dead ones' shards
-    on the master — the step drains on the survivors."""
+    gather, so a Pending carries what any member's message is built
+    from (``plans.axis``): the op's operands as the master computes on
+    them, its ``cut`` and its ``plan``; and ``parts`` (the participant
+    links, frozen at scatter time — membership lists may have shrunk by
+    gather time).  The gather reads live participants and recomputes
+    dead ones' parts on the master — the step drains on the survivors."""
 
     op: str                       # "conv" | "bwd"
     seq: int                      # FIFO position; gathers must match
-    x: np.ndarray                 # kernel mode: the broadcast input;
-    #                               spatial/batch: the FULL input (the
-    #                               master slices its own strip/rows at
-    #                               gather)
-    my_w: np.ndarray              # master's kernel shard (spatial/batch: full w)
-    my_g: Optional[np.ndarray]    # bwd only: master's grad slice/strip/rows
+    x: np.ndarray                 # the input, as the master computes on it
+    g: Optional[np.ndarray]       # bwd only: the output's gradient, likewise
+    cut: object                   # what the axis cut once for this op:
+    #                               batch rows re-cut to THIS slab, or the
+    #                               kernel axis's split of g
     t_issued: float
-    mode: str = "kernel"          # partition axis this op was split on
-    rows: Optional[List[Tuple[int, int]]] = None
-    #                               spatial: H strips [r0, r1) per device;
-    #                               batch: N-axis ranges per device,
-    #                               re-cut to THIS slab's batch size (a
-    #                               microbatch's N differs from the
-    #                               planning shape) — recovery recomputes
-    #                               a dead member's rows from these
-    halos: Optional[List[Tuple[int, int, int, int]]] = None
-    #                               spatial: (lo, hi, pad_top, pad_bot) per device
-    plan: Optional[LayerPlan] = None  # the split this op rode (recovery)
-    parts: Optional[list] = None      # participant transports, scatter-time
-    g_all: Optional[np.ndarray] = None  # bwd: full microbatch gradient
+    plan: LayerPlan               # the split this op rode
+    parts: list                   # participant transports, scatter-time
     device: Optional[object] = None   # the card path: the master's torch
     #                                   device, where the gather's result lies
     x_host: Optional[np.ndarray] = None  # the input the slaves got (on the
