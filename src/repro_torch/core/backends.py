@@ -489,6 +489,7 @@ def probe_conv_time(
     repeats: int = 3,
     slowdown: float = 1.0,
     seed: int = 0,
+    device=None,
 ) -> float:
     """The paper's probe: median wall-clock of the reference convolution
     on the given backend (name or instance), scaled by the emulated
@@ -498,7 +499,14 @@ def probe_conv_time(
     its op-level emulation can only sleep — but standalone Eq. 1 inputs
     for genuinely faster remote devices need the scaling, as do
     parameterized sim backends.)  Probing the backend a device actually
-    runs keeps the Eq. 1 ratios exact for mixed-backend clusters."""
+    runs keeps the Eq. 1 ratios exact for mixed-backend clusters.
+
+    ``device`` (a torch device) times the backend on tensors there, as
+    the master's shard of the card path runs: the operands move once,
+    before the warm-up and under no span, and each call ends on the
+    drain of its result, so the host's clock reads the device's time.
+    None: numpy operands, copies included where the backend makes
+    them."""
     if slowdown <= 0:
         raise ValueError(f"slowdown must be positive, got {slowdown}")
     if isinstance(backend, str):
@@ -508,11 +516,19 @@ def probe_conv_time(
     w = rng.normal(
         size=(kernel_size, kernel_size, in_channels, num_kernels)
     ).astype(np.float32)
-    backend.conv(x, w)  # warm caches / jit
+    if device is not None:
+        x, w = seam(device, x=x, w=w)
+
+    def call():
+        y = backend.conv(x, w)
+        if device is not None:
+            drain(y)
+
+    call()  # warm caches / jit
     times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        backend.conv(x, w)
+        call()
         times.append(time.perf_counter() - t0)
     measured = float(np.median(times))
     return measured * slowdown

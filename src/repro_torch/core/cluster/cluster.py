@@ -160,8 +160,12 @@ class HeteroCluster:
     A training chain's plans read each layer's own probe instead
     (``layer_probe``): a card's time of a shallow layer is mostly its
     copies, of a deep one mostly its kernel, so one workload's ratio
-    mis-splits the other.  Times set by hand (``probe_times = [...]``)
-    are pinned: every plan then splits by them.
+    mis-splits the other.  There the master is timed where its part of
+    the op runs: on tensors on its device where the chain's input lies
+    there and the axis computes the master's part on the op's own
+    operands, else on numpy operands.  Times set by hand
+    (``probe_times = [...]``) are pinned: every plan then splits by
+    them.
 
     ``partition`` picks the conv split axis: ``"kernel"`` (the paper,
     default), ``"spatial"`` (height strips + halo exchange — each slave
@@ -879,8 +883,9 @@ class HeteroCluster:
     def probe_times(self, times: Optional[List[float]]) -> None:
         """Pin the times: the per-layer table goes off."""
         self._probe_times = times
-        # per layer geometry (the probe's kwargs as a sorted tuple): each
-        # member's time by device id (0 = the master); None = pinned
+        # per layer placement and geometry ("card" or "host", then the
+        # probe's kwargs as a sorted tuple): each member's time by device
+        # id (0 = the master); None = pinned
         self._layer_times: Optional[Dict[tuple, Dict[int, float]]] = None
 
     def probe(self, **probe_kwargs) -> List[float]:
@@ -927,44 +932,60 @@ class HeteroCluster:
         self._probe_kwargs = dict(probe_kwargs)
         return self.probe_times
 
-    def _layer_probe_kwargs(self, x_shape, w_shape) -> Tuple[dict, tuple]:
-        """The reference convolution at one call's geometry (``x_shape``
-        ``(rows, H, W, Cin)``, ``w_shape`` ``(kh, kw, Cin, Cout)``) with
-        the repeats and seed ``probe()`` ran, and its key in the table."""
+    def _layer_probe_kwargs(self, x, w_shape) -> Tuple[dict, tuple]:
+        """The reference convolution at one call's geometry (``x`` of
+        shape ``(rows, H, W, Cin)``, ``w_shape`` ``(kh, kw, Cin, Cout)``)
+        with the repeats and seed ``probe()`` ran, and its key in the
+        table: where the master's part of the op on ``x`` runs, then the
+        geometry, so a card-path and a host-path chain on one cluster
+        keep columns of their own.  ``"card"`` where ``x`` is a tensor
+        on the master's device and the axis computes the master's part
+        on the op's own operands (the kernel axis); else ``"host"``
+        (numpy operands; the spatial and batch axes, and ``"auto"``,
+        whose pick would need a time for each placement)."""
+        ax = plans.AXES.get(self.partition)
+        on_card = self._card(x) is not None and ax is not None and ax.card
         kw = dict(
-            image_size=int(x_shape[1]), in_channels=int(x_shape[3]),
+            image_size=int(x.shape[1]), in_channels=int(x.shape[3]),
             kernel_size=int(w_shape[0]), num_kernels=int(w_shape[3]),
-            batch=int(x_shape[0]),
+            batch=int(x.shape[0]),
         )
         for k in ("repeats", "seed"):
             if k in self._probe_kwargs:
                 kw[k] = self._probe_kwargs[k]
-        return kw, tuple(sorted(kw.items()))
+        return kw, ("card" if on_card else "host",) + tuple(sorted(kw.items()))
 
-    def layer_probe_due(self, x_shape, w_shape) -> bool:
+    def layer_probe_due(self, x, w_shape) -> bool:
         """Whether ``layer_probe`` would probe a device for this layer:
         the table is on (``probe()`` measured the times, more than one
-        device) and lacks a member's time for the geometry."""
+        device) and lacks a member's time for the placement and
+        geometry."""
         if self._layer_times is None or self.n_slaves == 0:
             return False
-        _, key = self._layer_probe_kwargs(x_shape, w_shape)
+        _, key = self._layer_probe_kwargs(x, w_shape)
         col = self._layer_times.get(key, {})
         return any(dev not in col for dev in [0] + self.slave_ids)
 
-    def layer_probe(self, x_shape, w_shape) -> Optional[plans.LayerProbe]:
+    def layer_probe(self, x, w_shape) -> Optional[plans.LayerProbe]:
         """A training plan's Eq. 1 input for one conv layer: each
         device's time of the §4.1.1 reference convolution at THIS
-        layer's geometry (one call's ``x_shape``, the layer's
+        layer's geometry (one call's input ``x``, the layer's
         ``w_shape``), in device order, and its FLOPs.  One device's
         ratio to another's depends on the layer (a card's time of a
         shallow layer is mostly copies, of a deep one mostly its
         kernel), so the cluster-wide probe would mis-split most layers.
 
-        A member missing from the table for this geometry is probed now
-        with the ``probe`` op (the master on its own backend), one
-        device after another, and kept: later plans of the geometry
-        read the table.  None where the cluster-wide probe stays the
-        input: times pinned by hand, never probed, or no slave.
+        A member missing from the table for this placement and geometry
+        is probed now, one device after another, and kept: later plans
+        of the placement and geometry read the table.  A slave runs the
+        ``probe`` op; the master runs it on its own backend where its
+        part of the op on ``x`` will run: on tensors on its device on
+        the card path's kernel axis, which cross no seam while timed,
+        else on numpy operands.  Each probe is the span
+        ``cluster.layer_probe`` with the label ``operands`` (``"card"``
+        or ``"host"``; a slave's ``"host"``: the wire hands it numpy).
+        None where the cluster-wide probe stays the input: times pinned
+        by hand, never probed, or no slave.
 
         Raises:
             RuntimeError: ops are in flight — a probe's answer would
@@ -972,7 +993,7 @@ class HeteroCluster:
         """
         if self._layer_times is None or self.n_slaves == 0:
             return None
-        kw, key = self._layer_probe_kwargs(x_shape, w_shape)
+        kw, key = self._layer_probe_kwargs(x, w_shape)
         col = self._layer_times.setdefault(key, {})
         missing = [dev for dev in [0] + self.slave_ids if dev not in col]
         if missing and self._seq_issued != self._seq_gathered:
@@ -985,10 +1006,12 @@ class HeteroCluster:
         )}
         for dev in missing:
             t0 = time.perf_counter()
+            where = "host"
             if dev == 0:
-                backend = self.backends[0]
+                backend, where = self.backends[0], key[0]
                 col[0] = probe_conv_time(
-                    self._master_backend, slowdown=self.slowdowns[0], **kw
+                    self._master_backend, slowdown=self.slowdowns[0],
+                    device=self.master_device if where == "card" else None, **kw
                 )
             else:
                 if dev not in self.slave_ids:
@@ -1002,7 +1025,7 @@ class HeteroCluster:
                     self._on_slave_lost(sock, e)
                     continue
             spans.record("cluster.layer_probe", t0, time.perf_counter(),
-                         device=dev, backend=backend, **geometry)
+                         device=dev, backend=backend, operands=where, **geometry)
         return plans.LayerProbe(
             [col[0]] + [col[dev] for dev in self.slave_ids], _probe_flops(kw)
         )

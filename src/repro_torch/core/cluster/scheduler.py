@@ -279,9 +279,11 @@ def conv_train_chain(
     a microbatch for both sweeps.  Otherwise every operand is numpy.
 
     Each layer's plan splits by the devices' probe of that layer's
-    geometry (``HeteroCluster.layer_probe``).  A geometry's first plan
-    probes with idle links, so when layer k > 0 is new, layer k-1's
-    later microbatches finish before it is planned.
+    geometry (``HeteroCluster.layer_probe``), the master's taken where
+    its part runs (on the card path and the kernel axis, on card
+    tensors).  A geometry's first plan probes with idle links, so when
+    layer k > 0 is new, layer k-1's later microbatches finish before it
+    is planned.
     """
     L = len(layer_weights)
     assert L >= 1 and head is not None, "need >= 1 conv layer and a head"
@@ -306,7 +308,7 @@ def conv_train_chain(
     def plan_for(k: int, xi: np.ndarray) -> LayerPlan:
         if plans[k] is None:
             w = layer_weights[k]
-            if k > 0 and cluster.layer_probe_due(xi.shape, w.shape):
+            if k > 0 and cluster.layer_probe_due(xi, w.shape):
                 # the probe's answers would come back behind layer
                 # k-1's later microbatches on the FIFO links: finish
                 # those first (once per layer geometry)
@@ -321,7 +323,7 @@ def conv_train_chain(
             plans[k] = plan_conv(
                 cluster, (x.shape[0],) + xi.shape[1:], w,
                 "train", weight_key=("train", k),
-                layer=cluster.layer_probe(xi.shape, w.shape),
+                layer=cluster.layer_probe(xi, w.shape),
             )
         return plans[k]
 

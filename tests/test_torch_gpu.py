@@ -423,6 +423,43 @@ def test_a_cuda_master_step_on_the_card_path_equals_the_host_path(dev, backends)
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
 
 
+def test_a_cuda_master_s_layer_probe_times_its_card_tensors(dev):
+    """On the card path a cuda master's Eq. 1 probe of conv2 (batch 8)
+    runs on tensors on the card: its span reads ``operands="card"``, no
+    ``cuda.to_card`` falls inside it, and it takes less than the same
+    geometry's probe on numpy operands, which copies x and w over and y
+    back each call."""
+    import time
+
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import spans
+
+    x_shape, w_shape = (8, 16, 16, 500), (5, 5, 500, 1500)
+    c = HeteroCluster([1.0, 1.0], ["cuda", "numpy"], comp_aware=False)
+    try:
+        c.probe(image_size=32, in_channels=3, kernel_size=5, num_kernels=500, batch=8)
+        on_card, on_host = torch.zeros(x_shape, device=dev), np.zeros(x_shape, np.float32)
+        spans.record("test.off", time.perf_counter(), time.perf_counter())
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)):
+            card = c.layer_probe(on_card, w_shape)
+            host = c.layer_probe(on_host, w_shape)
+        sp = spans.spans()
+    finally:
+        c.shutdown()
+    probes = [s for s in sp if s.name == "cluster.layer_probe"]
+    assert [(s.attrs["device"], s.attrs["operands"]) for s in probes] == [
+        (0, "card"), (1, "host"), (0, "host"), (1, "host")]
+    master = probes[0]
+    copies = [s for s in sp if s.name == "cuda.to_card"]
+    assert copies  # the host probe's copies
+    assert not [s for s in copies
+                if master.start_ns <= s.start_ns and s.end_ns <= master.end_ns]
+    assert card.times[0] < host.times[0]
+
+
 def test_cuda_hierarchy_matches_float64_and_reruns_bit_identical(dev):
     """An in-process ``HierarchicalCluster("2x2")`` whose five devices all
     take the default ``cuda`` backend, at tests/test_hierarchy.py's

@@ -10,7 +10,14 @@ The devices of the first test are a backend registered here: a fixed
 cost per call plus a cost per FLOP (no arithmetic), so a card-like
 device (a large fixed cost, a fast rate) and a CPU-like one (no fixed
 cost, a slow rate) rank one way on a shallow layer and the other way on
-a deep one, as a card and the host's CPU do on conv1 and conv2."""
+a deep one, as a card and the host's CPU do on conv1 and conv2.
+
+The master is probed where its part of the op runs: a card-path chain
+(its input a tensor on the master's device, the kernel axis) times it
+on tensors there, a host-path chain on numpy operands.  The master of
+those tests is another backend registered here, a device of torch CPU
+tensors that takes long on numpy operands (its copies) and little on
+tensors."""
 import time
 
 import numpy as np
@@ -22,7 +29,14 @@ from torch.profiler import ProfilerActivity, profile
 from _torch_cluster_parity import clusters, data, train_step
 from repro.core.cluster import scheduler as jax_scheduler
 from repro_torch.core import spans
-from repro_torch.core.backends import ConvBackend, register_backend
+from repro_torch.core import backends
+from repro_torch.core.backends import (
+    ConvBackend,
+    CudaBackend,
+    get_backend,
+    probe_conv_time,
+    register_backend,
+)
 from repro_torch.core.cluster import scheduler
 from repro_torch.core.cluster.cluster import HeteroCluster
 from repro_torch.core.cluster.scheduler import ServeChain
@@ -62,6 +76,47 @@ class FixedCostBackend(ConvBackend):
         return np.zeros(x.shape, np.float32), np.zeros(w.shape, np.float32)
 
 
+PLACED = "placed:0.05:0.001"  # 50 ms a call on numpy operands, 1 ms on tensors
+
+
+@register_backend("placed")
+class PlacedBackend(ConvBackend):
+    """Sleeps ``host_s`` a call on numpy operands and ``card_s`` on
+    tensors (``"placed:<host_s>:<card_s>"``) and answers with zeros
+    where its operands lie: a device of torch CPU tensors whose copies
+    cost, as a card's do, never for numerics.  ``calls`` keeps, per
+    ``conv`` call, whether its x was a tensor."""
+
+    name = "placed"
+
+    def __init__(self, param):
+        host, card = param.split(":")
+        self.host_s, self.card_s = float(host), float(card)
+        self.device = torch.device("cpu")
+        self.calls = []
+
+    def _zeros(self, x, shape):
+        on_card = isinstance(x, torch.Tensor)
+        time.sleep(self.card_s if on_card else self.host_s)
+        return torch.zeros(shape) if on_card else np.zeros(shape, np.float32)
+
+    def conv(self, x, w):
+        self.calls.append(isinstance(x, torch.Tensor))
+        return self._zeros(x, tuple(x.shape[:-1]) + (w.shape[-1],))
+
+    def conv_vjp(self, x, w, g):
+        return self._zeros(x, tuple(x.shape)), self._zeros(x, tuple(w.shape))
+
+
+@register_backend("cuda_on_cpu_probe")
+def _cuda_on_cpu():
+    """``CudaBackend`` on CPU tensors: its seam and spans around the
+    kernels' plain versions."""
+    backend = CudaBackend.__new__(CudaBackend)
+    backend.device = torch.device("cpu")
+    return backend
+
+
 def _profiler():
     return profile(activities=[ProfilerActivity.CPU],
                    experimental_config=_ExperimentalConfig(profile_all_threads=True))
@@ -99,6 +154,12 @@ def _chain(c, x, ws, between=None):
     return c.conv_train_chain(x, ws, between, lambda z, i: (None, z))
 
 
+def _mb(*shape, card=False):
+    """A microbatch of ``shape``: a CPU tensor (``card``: on the
+    ``placed`` master's device) or numpy."""
+    return torch.zeros(shape) if card else np.zeros(shape, np.float32)
+
+
 def _rng_weights(seed, *shapes):
     rng = np.random.default_rng(seed)
     return [0.1 * rng.standard_normal(s).astype(np.float32) for s in shapes]
@@ -116,7 +177,7 @@ def test_each_layer_is_split_by_its_own_probe(chain_plans):
         plans = chain_plans["port"]
         assert len(plans) == 4
         for k, w in enumerate((w1, w2)):
-            layer = c.layer_probe((2, 8, 8, w.shape[2]), w.shape)  # a table lookup
+            layer = c.layer_probe(_mb(2, 8, 8, w.shape[2]), w.shape)  # a table lookup
             assert plans[k].counts.tolist() == plans[k + 2].counts.tolist() == (
                 allocate_kernels(w.shape[-1], layer.times).tolist())
             assert layer.flops == 2.0 * 2 * 64 * w.shape[0] ** 2 * w.shape[2] * w.shape[3]
@@ -145,8 +206,8 @@ def test_pinned_times_split_as_the_jax_package_does(chain_plans, probed_first):
         got = [p.counts.tolist() for p in chain_plans["port"]]
         assert got == [p.counts.tolist() for p in chain_plans["jax"]]
         assert got == want
-        assert port.layer_probe((3, 8, 8, 3), w1.shape) is None
-        assert not port.layer_probe_due((3, 8, 8, 3), w1.shape)
+        assert port.layer_probe(_mb(3, 8, 8, 3), w1.shape) is None
+        assert not port.layer_probe_due(_mb(3, 8, 8, 3), w1.shape)
         names = [s.name for s in spans.spans()]
         assert "cluster.layer_probe" not in names
         assert {s.attrs["eq1"] for s in spans.spans() if s.name == "cluster.plan"} == {"probe"}
@@ -164,7 +225,7 @@ def test_a_one_device_cluster_probes_no_layer(chain_plans):
         with _profiler():
             _chain(c, x, [w1, w2])
         assert "cluster.layer_probe" not in {s.name for s in spans.spans()}
-        assert c.layer_probe((2, 8, 8, 3), w1.shape) is None
+        assert c.layer_probe(_mb(2, 8, 8, 3), w1.shape) is None
         assert c._layer_times == {}
         assert [p.counts.tolist() for p in chain_plans["port"]] == [[6], [9]]
     finally:
@@ -184,16 +245,16 @@ def test_the_table_follows_membership():
         assert columns() == [[0, 1, 2], [0, 1, 2]]
         c.evict(1)
         assert columns() == [[0, 2], [0, 2]]  # no stale column
-        assert not c.layer_probe_due((2, 8, 8, 3), w1.shape)
+        assert not c.layer_probe_due(_mb(2, 8, 8, 3), w1.shape)
         dev = c.admit(1.0, "numpy")
-        assert c.layer_probe_due((2, 8, 8, 3), w1.shape)
+        assert c.layer_probe_due(_mb(2, 8, 8, 3), w1.shape)
         _chain(c, x, [w1, w2])
         assert columns() == [[0, 2, dev], [0, 2, dev]]
-        layer = c.layer_probe((2, 8, 8, 6), w2.shape)
+        layer = c.layer_probe(_mb(2, 8, 8, 6), w2.shape)
         assert len(layer.times) == 1 + c.n_slaves == 3
         # a new probe() measures anew: every layer is probed again
         c.probe(image_size=8, in_channels=3, kernel_size=3, num_kernels=6, batch=4)
-        assert c._layer_times == {} and c.layer_probe_due((2, 8, 8, 3), w1.shape)
+        assert c._layer_times == {} and c.layer_probe_due(_mb(2, 8, 8, 3), w1.shape)
     finally:
         c.shutdown()
 
@@ -205,9 +266,9 @@ def test_a_layer_probe_waits_for_idle_links():
         c.probe(image_size=8, in_channels=3, kernel_size=3, num_kernels=6, batch=4)
         p = c.scatter_conv(x, w1)
         with pytest.raises(RuntimeError, match="idle links"):
-            c.layer_probe(x.shape, w1.shape)
+            c.layer_probe(x, w1.shape)
         c.gather_conv(p)
-        assert len(c.layer_probe(x.shape, w1.shape).times) == 2
+        assert len(c.layer_probe(x, w1.shape).times) == 2
     finally:
         c.shutdown()
 
@@ -282,3 +343,130 @@ def test_forward_and_serving_plans_keep_the_cluster_wide_probe(chain_plans):
         assert c._layer_times == {}  # no layer was probed
     finally:
         c.shutdown()
+
+
+def _placed_chain(c, on_card, seed=7):
+    """A chain of two layers over ``c``, its input and kernels tensors
+    on the CPU (the card path of a master there) or numpy (the host
+    path); no stage between them.  Returns the kernels."""
+    x, w1, w2 = _rng_weights(seed, (4, 8, 8, 3), (3, 3, 3, 12), (5, 5, 12, 16))
+    if on_card:
+        x, w1, w2 = (torch.from_numpy(a) for a in (x, w1, w2))
+    c.conv_train_chain(x, [w1, w2], [None, None], lambda z, i: (None, z))
+    return w1, w2
+
+
+def _placed_cluster(**kw):
+    c = HeteroCluster([1.0, 1.0], [PLACED, "numpy"], pipeline=True, microbatches=2,
+                      comp_aware=False, **kw)
+    c.probe(image_size=8, in_channels=3, kernel_size=3, num_kernels=12, batch=4)
+    get_backend(PLACED).calls.clear()
+    return c
+
+
+@pytest.mark.parametrize("where", ["card", "host"])
+def test_the_master_is_probed_where_its_part_runs(chain_plans, where):
+    master = get_backend(PLACED)
+    c = _placed_cluster()
+    try:
+        _off_boundary()
+        with _profiler():
+            ws = _placed_chain(c, where == "card")
+        sp, counted = spans.spans(), spans.counters()["cluster.layer_probe"]
+        calls = list(master.calls)
+        for plan, w in zip(chain_plans["port"], ws):
+            layer = c.layer_probe(_mb(2, 8, 8, w.shape[2], card=where == "card"), w.shape)
+            assert plan.counts.tolist() == allocate_kernels(w.shape[-1], layer.times).tolist()
+            if where == "card":  # the tensor time, not the numpy time
+                assert layer.times[0] < master.host_s / 2
+            else:
+                assert layer.times[0] >= master.host_s
+        assert all(key[0] == where for key in c._layer_times)
+    finally:
+        c.shutdown()
+    # the probe's calls (a warm-up and 3 timed, each layer) and the
+    # shard's took the operands of the chain's placement
+    assert len(calls) >= 2 * 4 and set(calls) == {where == "card"}
+    probes = [s.attrs for s in sp if s.name == "cluster.layer_probe"]
+    assert [(a["device"], a["operands"]) for a in probes] == [(0, where), (1, "host")] * 2
+    assert counted.s_by.get(("operands", where), 0.0) > 0.0
+
+
+def test_a_card_path_and_a_host_path_chain_keep_their_own_table_entries():
+    master = get_backend(PLACED)
+    c = _placed_cluster()
+    try:
+        w1, w2 = _placed_chain(c, True)
+        assert c.layer_probe_due(_mb(2, 8, 8, 3), w1.shape)
+        assert not c.layer_probe_due(_mb(2, 8, 8, 3, card=True), w1.shape)
+        _placed_chain(c, False)
+        assert sorted(key[0] for key in c._layer_times) == ["card"] * 2 + ["host"] * 2
+        for w in (w1, w2):
+            card = c.layer_probe(_mb(2, 8, 8, w.shape[2], card=True), w.shape)
+            host = c.layer_probe(_mb(2, 8, 8, w.shape[2]), w.shape)
+            assert card.times[0] < master.host_s / 2 <= master.host_s <= host.times[0]
+            assert card.flops == host.flops
+        # a table lookup calls nothing
+        n = len(master.calls)
+        c.layer_probe(_mb(2, 8, 8, 3, card=True), w1.shape)
+        assert len(master.calls) == n
+    finally:
+        c.shutdown()
+
+
+@pytest.mark.parametrize("partition", ["spatial", "batch", "auto"])
+def test_the_other_axes_keep_the_host_probe(partition):
+    master = get_backend(PLACED)
+    c = _placed_cluster(partition=partition)
+    try:
+        _off_boundary()
+        with _profiler():
+            _placed_chain(c, True)
+        probes = [s.attrs for s in spans.spans() if s.name == "cluster.layer_probe"]
+        assert {key[0] for key in c._layer_times} == {"host"}
+        assert {a["operands"] for a in probes} == {"host"}
+        for key, col in c._layer_times.items():
+            assert col[0] >= master.host_s, key
+    finally:
+        c.shutdown()
+
+
+def test_the_probe_placement_follows_the_input_and_the_axis():
+    """A tensor on the master's device keys the table ``"card"``; numpy
+    input, or any input to a numpy master, ``"host"``."""
+    c = HeteroCluster([1.0, 1.0], [PLACED, "numpy"])
+    n = HeteroCluster([1.0, 1.0], ["numpy", "numpy"])
+    try:
+        for cl in (c, n):
+            cl.probe(image_size=8, in_channels=3, kernel_size=3, num_kernels=6, batch=2)
+        t = torch.zeros((2, 8, 8, 3))
+        for cl, x, want in ((c, t, "card"), (c, t.numpy(), "host"),
+                            (n, t, "host"), (n, t.numpy(), "host")):
+            cl.layer_probe(x, (3, 3, 3, 6))
+            assert [key[0] for key in cl._layer_times] == [want], (cl.backends, type(x))
+            cl._layer_times.clear()
+    finally:
+        c.shutdown()
+        n.shutdown()
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+def test_a_card_probe_times_tensors_and_drains_each_call(monkeypatch, on_card):
+    drained = []
+    real = backends.drain
+    monkeypatch.setattr(backends, "drain", lambda t: (drained.append(t), real(t)))
+    kw = dict(image_size=8, in_channels=3, kernel_size=3, num_kernels=6, batch=2)
+    _off_boundary()
+    with _profiler():
+        t = probe_conv_time("cuda_on_cpu_probe", device="cpu" if on_card else None, **kw)
+    names = {(s.name, s.attrs.get("operands")) for s in spans.spans()}
+    assert t > 0.0
+    if on_card:
+        # the operands moved once, under no span; the warm-up and the 3
+        # timed calls each end on the drain of a tensor result
+        assert names == {("cuda.compute", "card")}
+        results = [d for d in drained if d.shape == (2, 8, 8, 6)]
+        assert len(results) >= 2 * 4 and all(isinstance(d, torch.Tensor) for d in results)
+    else:
+        assert {"cuda.to_card", "cuda.to_host"} <= {n for n, _ in names}
+        assert ("cuda.compute", "host") in names
