@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/configs/__init__.py``: the paper's four CIFAR CNN
 sizes (``cifar_cnn.CONFIGS``), VGG-16 (``vgg16.CONFIG``, the port's own:
-``get_config("vgg16")``) and the ten model-zoo architectures, one
+``get_config("vgg16")``), ResNet-50 (``resnet50.CONFIG``, likewise:
+``get_config("resnet50")``) and the ten model-zoo architectures, one
 small data module each (``all_configs`` maps every arch id to its
 config); the dry runs' input shapes (``INPUT_SHAPES``) and their
 stand-ins (``input_specs``, ``shapes_for_arch``).
@@ -14,6 +15,7 @@ from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
     AudioStubConfig,
+    BottleneckStage,
     ChainConv,
     ChainDense,
     CNNConfig,
@@ -22,6 +24,7 @@ from repro_torch.configs.base import (  # noqa: F401
     InputShape,
     ModelConfig,
     MoEConfig,
+    ResNetConfig,
     RunConfig,
     SSMConfig,
     VisionStubConfig,
@@ -51,6 +54,10 @@ def get_config(arch_id: str):
         return CONFIGS[arch_id]
     if arch_id == "vgg16":
         from repro_torch.configs.vgg16 import CONFIG
+
+        return CONFIG
+    if arch_id == "resnet50":
+        from repro_torch.configs.resnet50 import CONFIG
 
         return CONFIG
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")

@@ -5,7 +5,9 @@ defaults.  ``ModelConfig.compute_dtype`` is a torch dtype.  The input
 shapes of the dry runs (``InputShape``, ``INPUT_SHAPES``) are the JAX
 package's.  ``ConvChainConfig`` (with ``ChainConv`` and ``ChainDense``)
 is the port's own: a CNN of any depth for the cluster's training path,
-such as VGG-16 (``configs/vgg16.py``).
+such as VGG-16 (``configs/vgg16.py``); ``ResNetConfig`` (with
+``BottleneckStage``) is a residual network of bottleneck blocks for the
+same path, such as ResNet-50 (``configs/resnet50.py``).
 """
 from __future__ import annotations
 
@@ -176,6 +178,44 @@ class ConvChainConfig:
     @property
     def num_classes(self) -> int:
         return self.dense[-1].units
+
+
+@dataclasses.dataclass(frozen=True)
+class BottleneckStage:
+    """One stage of a ``ResNetConfig``: ``blocks`` bottleneck blocks,
+    each [1x1, ``width``; 3x3, ``width``; 1x1, expansion x ``width``]
+    convs, each conv followed by batch norm, ReLU after the first two
+    and after the block's residual add.  The stage's first block has
+    stride ``stride`` on its first 1x1 and on its projection."""
+
+    width: int
+    blocks: int
+    stride: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    """A residual network of bottleneck blocks (He et al.,
+    arXiv:1512.03385): a stem conv of ``stem_kernel`` x ``stem_kernel``
+    with ``stem_width`` kernels, stride 2 and padding ``stem_kernel //
+    2``, batch norm, ReLU and a 3x3/2 max-pool with padding 1; the
+    ``stages``; a global average pool; a dense layer of ``num_classes``
+    units and softmax cross-entropy.  A block's shortcut is the identity,
+    or a projection (a 1x1 conv and batch norm, option B) where the
+    width or the stride changes.  The convs have no bias; batch norm
+    takes train-mode statistics with ``bn_eps``.  Activations NHWC."""
+
+    arch_id: str
+    stages: Tuple[BottleneckStage, ...]
+    image_size: int = 224
+    image_channels: int = 3
+    stem_width: int = 64
+    stem_kernel: int = 7
+    expansion: int = 4
+    num_classes: int = 1000
+    bn_eps: float = 1e-5
+    dtype: str = "float32"
+    family: str = "cnn"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,12 +21,17 @@ master's device and overlap slave compute:
 ``--arch`` picks the network: the paper's CIFAR-10 CNN by ``--c1`` and
 ``--c2`` (the default), a ``cifar_cnn_*`` id, or ``vgg16`` (VGG-16,
 configuration D of arXiv:1409.1556 at 224x224: 13 convs, each a layer of
-the cluster, and a dense head with dropout), which trains through
-``--train-pipeline`` only, by SGD at ``configs/vgg16.SGD_LR`` (the
-paper's CNN at 0.05):
+the cluster, and a dense head with dropout) or ``resnet50`` (ResNet-50,
+arXiv:1512.03385 Table 1 at 224x224: 53 convs, projections included,
+each a layer of the cluster; batch norm, the residual adds, the pools
+and the head in the master's stages), which train through
+``--train-pipeline`` only, by SGD at ``configs/vgg16.SGD_LR`` and
+``configs/resnet50.SGD_LR`` (the paper's CNN at 0.05):
 
     PYTHONPATH=src python -m repro_torch.launch.hetero --train-pipeline \
         --arch vgg16 --backends cuda --slowdowns 1 --batch 32 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.hetero --train-pipeline \
+        --arch resnet50 --backends cuda --slowdowns 1 --batch 128 --steps 3
 
 ``--pipeline`` (and, without it, the barrier protocol) runs the
 autograd step of ``cnn_loss`` with the cluster as its conv
@@ -60,8 +65,9 @@ sub-master is an OS process with its group inside it as threads:
         --group-partition kernel --c1 500 --c2 1500 --batch 32 --steps 3
 
 Training draws its params from ``init_cnn`` (``init_chain`` for
-``vgg16``) with a ``torch.Generator`` seeded 0, its images from one
-seeded 1 (``train_inputs``) and its dropout masks from seed 0; they
+``vgg16``, ``init_resnet`` for ``resnet50``) with a ``torch.Generator``
+seeded 0, its images from one seeded 1 (``train_inputs``) and its
+dropout masks from seed 0; they
 cannot equal ``jax.random``'s draws, so parity with the JAX package is
 tested by carrying its params across (``convert.py``).  Serving draws
 identical weights and requests from numpy's generator in both CLIs
@@ -82,8 +88,8 @@ import traceback
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, vgg16
-from repro_torch.configs.base import ConvChainConfig
+from repro_torch.configs import get_config, resnet50, vgg16
+from repro_torch.configs.base import ConvChainConfig, ResNetConfig
 from repro_torch.core.cluster.cluster import HeteroCluster, make_distributed_conv
 from repro_torch.core.partitioner import workload_shares
 from repro_torch.models.cnn import (
@@ -94,6 +100,7 @@ from repro_torch.models.cnn import (
     make_cluster_train_step,
     make_cnn_config,
 )
+from repro_torch.models.resnet import init_resnet, resnet_layers
 
 # the conv backend each device runs when ``backends`` names none
 DEVICE_BACKENDS = {"cuda": "cuda", "cpu": "torch:cpu"}
@@ -129,12 +136,14 @@ def relu_pool(y: np.ndarray) -> np.ndarray:
 
 def train_inputs(cfg, batch: int, device):
     """The training run's params and batch on ``device``: ``init_cnn``
-    (``init_chain`` for a ``ConvChainConfig``) from a ``torch.Generator``
-    seeded 0, standard-normal images from one seeded 1, labels
+    (``init_chain`` for a ``ConvChainConfig``, ``init_resnet`` for a
+    ``ResNetConfig``) from a ``torch.Generator`` seeded 0,
+    standard-normal images from one seeded 1, labels
     ``arange(batch) % num_classes``.  Drawn on the CPU, so the CPU and
     the card get the same numbers.
     Returns ``(params, images, labels)``."""
-    init = init_chain if isinstance(cfg, ConvChainConfig) else init_cnn
+    init = (init_chain if isinstance(cfg, ConvChainConfig)
+            else init_resnet if isinstance(cfg, ResNetConfig) else init_cnn)
     params = init(torch.Generator().manual_seed(0), cfg, device)
     shape = (batch, cfg.image_size, cfg.image_size, cfg.image_channels)
     images = torch.randn(shape, generator=torch.Generator().manual_seed(1))
@@ -193,7 +202,8 @@ def run_hetero(
     step (``make_cluster_train_step``); otherwise the autograd step of
     the paper's CNN with the cluster as its conv
     (``make_distributed_conv``), microbatched when ``pipeline``.  A
-    ``ConvChainConfig`` trains through ``train_pipeline`` only.
+    ``ConvChainConfig`` or a ``ResNetConfig`` trains through
+    ``train_pipeline`` only.
 
     ``groups`` (a ``"GxM"`` topology) trains over a
     ``HierarchicalCluster`` instead: device 0 is the root, the batch
@@ -207,12 +217,18 @@ def run_hetero(
     with ``groups``, each in-process group's inner shares) and the
     params after each step, in order."""
     cfg = make_cnn_config(c1, c2) if cfg is None else cfg
-    if isinstance(cfg, ConvChainConfig) and not train_pipeline:
+    if isinstance(cfg, (ConvChainConfig, ResNetConfig)) and not train_pipeline:
         raise SystemExit(f"{cfg.arch_id} trains through --train-pipeline only")
-    chain = conv_chain(cfg)
-    # each conv layer's kernels, by the names the record has kept
-    widths = ({"c1": cfg.c1_kernels, "c2": cfg.c2_kernels} if chain is not cfg
-              else {c.name: c.kernels for c in chain.convs})
+    # each conv layer's kernels, by the names the record has kept, and
+    # the first conv's kernel size, the geometry of the Eq. 1 probe
+    if isinstance(cfg, ResNetConfig):
+        widths = {l.name: l.cout for l in resnet_layers(cfg)}
+        first_k = cfg.stem_kernel
+    else:
+        chain = conv_chain(cfg)
+        widths = ({"c1": cfg.c1_kernels, "c2": cfg.c2_kernels} if chain is not cfg
+                  else {c.name: c.kernels for c in chain.convs})
+        first_k = chain.convs[0].kernel_size
     last = list(widths)[-1]
     if groups is not None:
         from repro_torch.core.cluster.hierarchy import (
@@ -265,9 +281,9 @@ def run_hetero(
         )
     try:
         probe = cluster.probe(
-            image_size=chain.image_size, in_channels=chain.image_channels,
-            kernel_size=chain.convs[0].kernel_size,
-            num_kernels=max(8, chain.convs[0].kernels), batch=batch,
+            image_size=cfg.image_size, in_channels=cfg.image_channels,
+            kernel_size=first_k, num_kernels=max(8, next(iter(widths.values()))),
+            batch=batch,
         )
         shares = workload_shares(probe)
         print(f"devices: slowdowns={list(cluster.slowdowns)} "
@@ -583,8 +599,9 @@ def main():
                     help="request image height/width")
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--arch", default=None,
-                    help="the network trained: a cifar_cnn_* id or vgg16 "
-                         "(VGG-16 at 224x224, --train-pipeline only); "
+                    help="the network trained: a cifar_cnn_* id, vgg16 "
+                         "(VGG-16 at 224x224) or resnet50 (ResNet-50 at "
+                         "224x224), the last two --train-pipeline only; "
                          "default: the paper's CNN at --c1/--c2")
     ap.add_argument("--c1", type=int, default=8)
     ap.add_argument("--c2", type=int, default=16)
@@ -632,7 +649,8 @@ def main():
                 steps=args.steps, groups=args.groups,
                 group_partition=args.group_partition,
                 master_nic_mbps=args.master_nic_mbps, cfg=cfg,
-                lr=vgg16.SGD_LR if isinstance(cfg, ConvChainConfig) else 0.05,
+                lr=(vgg16.SGD_LR if isinstance(cfg, ConvChainConfig)
+                    else resnet50.SGD_LR if isinstance(cfg, ResNetConfig) else 0.05),
                 **common,
             )
             ok = bool(np.isfinite(rec["losses"]).all())

@@ -1,8 +1,10 @@
-"""Normalisation layers of the port: RMSNorm, LayerNorm, and the paper
-CNN's local response normalisation.
+"""Normalisation layers of the port: RMSNorm, LayerNorm, the paper
+CNN's local response normalisation, and ResNet's batch norm.
 
 Counterpart of ``repro/layers/norm.py``.  RMSNorm and LayerNorm compute
-in float32 and return x's dtype, as the JAX package does.
+in float32 and return x's dtype, as the JAX package does.  Batch norm
+(``batch_norm``, with its forward and backward halves for the cluster's
+stages) is the port's own.
 """
 from __future__ import annotations
 
@@ -84,3 +86,39 @@ def local_response_norm(
     padded = F.pad(xf * xf, (half, half))
     window = sum(padded[..., i : i + c] for i in range(size))
     return (xf / torch.pow(k + alpha * window, beta)).to(x.dtype)
+
+
+def batch_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float = 1e-5):
+    """Train-mode batch norm of NHWC ``x`` over N, H and W, per channel:
+    ``(x - mean) * rstd * gamma + beta`` with the biased variance
+    (``rstd = 1 / sqrt(var + eps)``), as ``F.batch_norm(training=True)``
+    normalises.  Returns ``(y, mean, rstd)``, the statistics (C,) for
+    ``batch_norm_bwd``.  Differentiable as torch ops."""
+    var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
+    rstd = torch.rsqrt(var + eps)
+    return (x - mean) * (rstd * gamma) + beta, mean, rstd
+
+
+def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``batch_norm_fwd``'s output alone."""
+    return batch_norm_fwd(x, gamma, beta, eps)[0]
+
+
+def batch_norm_bwd(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                   gamma: torch.Tensor, g: torch.Tensor):
+    """The VJP of ``batch_norm`` at ``x`` (with ``batch_norm_fwd``'s
+    ``mean`` and ``rstd``) for the output's gradient ``g``: ``(dx,
+    dgamma, dbeta)``, with ``xhat = (x - mean) * rstd`` and the means
+    over N, H and W:
+
+        dx = rstd * gamma * (g - mean(g) - xhat * mean(g * xhat)),
+        dgamma = sum(g * xhat), dbeta = sum(g)."""
+    dims = (0, 1, 2)
+    xhat = (x - mean) * rstd
+    dbeta = g.sum(dims)
+    dgamma = (g * xhat).sum(dims)
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    dx = (g - dbeta / m - xhat * (dgamma / m)) * (rstd * gamma)
+    return dx, dgamma, dbeta

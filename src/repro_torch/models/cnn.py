@@ -14,16 +14,24 @@ over a ``HeteroCluster``.
 ``make_cluster_train_step`` trains any ``ConvChainConfig`` (``conv_chain``) too,
 such as VGG-16 (``configs/vgg16.py``): a chain of conv layers, each with
 its own stage, and a dense head with ReLU and dropout; ``init_chain``
-draws its params, ``dropout_masks`` its masks.
+draws its params, ``dropout_masks`` its masks.  A ``ResNetConfig``
+(ResNet-50, ``configs/resnet50.py``) goes to ``models/resnet.py``; both
+build their step on ``cluster_train_step``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import ChainConv, ChainDense, CNNConfig, ConvChainConfig
+from repro_torch.configs.base import (
+    ChainConv,
+    ChainDense,
+    CNNConfig,
+    ConvChainConfig,
+    ResNetConfig,
+)
 from repro_torch.core import spans
 from repro_torch.core.backends import drain, seam
 from repro_torch.layers.conv import apply_conv, conv_axes, init_conv, max_pool
@@ -196,6 +204,98 @@ def dropout_masks(cfg: ConvChainConfig, dropout_seed: int, step: int, batch: int
     return masks
 
 
+class StepPlan(NamedTuple):
+    """One step's model side, as ``cluster_train_step`` runs it:
+    ``between``, the stage after each conv (``conv_train_step``'s);
+    ``head(z, labels, sl, denom) -> (loss, correct, gz, grads)``, one
+    microbatch's head on ``device`` (``sl`` its rows of the batch,
+    ``grads`` ``{name: {leaf: grad}}`` of the head's params, summed over
+    the microbatches); ``finish(kernels, head_grads) -> new_params``,
+    SGD on every param but the conv kernels, whose new values (on
+    ``device``) it is handed."""
+
+    between: List[Callable]
+    head: Callable
+    finish: Callable
+
+
+def card_place(cluster, dev: torch.device):
+    """Where the cluster's operands lie: ``dev`` where the cluster's
+    master computes there (the card path), else None (numpy)."""
+    master = cluster.master_device
+    card = master is not None and master.type == dev.type and (
+        (master.index or 0) == (dev.index or 0))
+    return dev if card else None
+
+
+def handoff(place, name, **t):
+    """A stage's or the head's result handed to the cluster, after the
+    card's drain: as it is on the card path, else numpy (the span
+    ``name``)."""
+    for v in t.values():
+        drain(v)
+    return seam(place, name, **t)
+
+
+def cluster_train_step(cluster, dev: torch.device, *, lr: float, kernel_names,
+                       head_layers: int, warm, begin):
+    """The step that ``make_cluster_train_step`` builds for every
+    configuration, around its model side: the images and labels to
+    ``dev`` (the cluster's place for the images), ``warm(mb, params,
+    image_size)`` once per microbatch size and drained on the card,
+    ``begin(params, batch) -> StepPlan``, the conv kernels
+    ``kernel_names`` through ``cluster.conv_train_step`` with plain SGD,
+    each microbatch's head under the span ``step.head`` (labels ``rows``
+    and ``layers``: ``head_layers``), and the new kernels back on
+    ``dev``."""
+    place = card_place(cluster, dev)
+    warmed: set = set()  # microbatch sizes whose stages have run once
+
+    def step(params, images, labels):
+        with spans.span("step"):
+            return _step(params, images, labels)
+
+    def _step(params, images, labels):
+        images = seam(place, "step.to_host" if place is None else "step.to_card",
+                      images=images)
+        labels = torch.as_tensor(labels).long().to(dev)
+        batch = images.shape[0]
+        slices = cluster.microbatch_slices(batch)
+        for sl in slices:
+            mb = sl.stop - sl.start
+            if mb not in warmed:
+                warmed.add(mb)
+                warm(mb, params, images.shape[1])
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        plan = begin(params, batch)
+        head_grad = [None]  # the head's param grads, summed over microbatches
+
+        def head(z, i):
+            sl = slices[i]
+            zt = seam(dev, "step.to_card", z=z)
+            with spans.span("step.head", z.nbytes, rows=sl.stop - sl.start,
+                            layers=head_layers):
+                loss_i, correct_i, gz, g = plan.head(zt, labels[sl], sl, float(batch))
+                drain(gz)
+            head_grad[0] = g if head_grad[0] is None else {
+                n: {k: head_grad[0][n][k] + v for k, v in d.items()} for n, d in g.items()}
+            return (float(loss_i), float(correct_i)), seam(place, "step.to_host", gz=gz)
+
+        kernels = [seam(place, "step.kernels_to_host", w=params[n]["kernel"])
+                   for n in kernel_names]
+        new_kernels, res = cluster.conv_train_step(
+            images, kernels, plan.between, head,
+            update=lambda w, dw: w - lr * dw,
+        )
+        loss = float(sum(a[0] for a in res.head_aux))
+        acc = float(sum(a[1] for a in res.head_aux)) / batch
+        new_kernels = [seam(dev, "step.kernels_to_card", w=w) for w in new_kernels]
+        return plan.finish(new_kernels, head_grad[0]), loss, acc
+
+    return step
+
+
 def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
                             dropout_seed: int = 0):
     """Full training steps of a CNN over a HeteroCluster via the
@@ -205,7 +305,9 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
     dense head with its ReLUs and dropout; softmax cross-entropy)
     overlap slave compute through the activation-stashing pipeline.
     ``cfg`` is the paper's ``CNNConfig`` (two convs, one fc) or any
-    ``ConvChainConfig`` (``conv_chain``).
+    ``ConvChainConfig`` (``conv_chain``); a ``ResNetConfig`` trains
+    through ``models/resnet.py::make_resnet_train_step`` (``dropout_seed``
+    unused: it has no dropout).
 
     The master-only stages run as plain PyTorch on ``device`` (the card
     by default).  Where the cluster's master computes on ``device``
@@ -242,24 +344,16 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
     Each stage and the head end on the card's drain, so the cluster's
     ``LayerTiming.comp_s`` holds their device time.
     """
+    if isinstance(cfg, ResNetConfig):
+        from repro_torch.models.resnet import make_resnet_train_step
+
+        return make_resnet_train_step(cluster, cfg, lr=lr, device=device)
     chain = conv_chain(cfg)
     convs, dense = chain.convs, chain.dense
     dev = torch.device(device)
-    master = cluster.master_device
-    # the card path: the cluster's master computes where the params lie
-    card = master is not None and master.type == dev.type and (
-        (master.index or 0) == (dev.index or 0))
-    place = dev if card else None  # where the cluster's operands lie
+    place = card_place(cluster, dev)
     s = chain.pool_stride
     calls = [0]  # steps begun, the index of the next step's masks
-
-    def _out(name, **t):
-        """A stage's or the head's result handed to the cluster, after
-        the card's drain: as it is on the card path, else numpy (the
-        span ``name``)."""
-        for v in t.values():
-            drain(v)
-        return seam(place, name, **t)
 
     def _stage(y, b, layer):
         """The master-only block after a conv: +bias, ReLU, then LRN and
@@ -305,17 +399,12 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
             grads[name][k] = g
         return loss.detach(), correct, gz, grads
 
-    warmed: set = set()  # microbatch sizes whose stages have run once
-
-    def _warm(mb, params):
+    def _warm(mb, params, _size):
         """Run every master-only stage once for this microbatch size, at
-        each distinct stage shape of the chain, OUTSIDE the pipeline,
-        synchronized on the card: one-time CUDA handle and allocator
-        warm-up must not pollute the cluster's measured non-conv duty
-        (it would strip the master's conv share)."""
-        if mb in warmed:
-            return
-        warmed.add(mb)
+        each distinct stage shape of the chain, OUTSIDE the pipeline:
+        one-time CUDA handle and allocator warm-up must not pollute the
+        cluster's measured non-conv duty (it would strip the master's
+        conv share)."""
         h, done = chain.image_size, set()
         for c in convs:
             out = h // s if c.pool else h
@@ -330,8 +419,6 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
                  for d in dense]
         _head_both(torch.zeros((mb, h, h, convs[-1].kernels), device=dev), params,
                    torch.zeros((mb,), dtype=torch.long, device=dev), masks, 1.0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     def _masks(batch, index):
         """This step's dropout masks on ``dev`` (None per layer without)."""
@@ -342,23 +429,11 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
             return [None if m is None else m.to(dev)
                     for m in dropout_masks(chain, dropout_seed, index, batch)]
 
-    def step(params, images, labels):
-        with spans.span("step"):
-            return _step(params, images, labels)
-
-    def _step(params, images, labels):
+    def _begin(params, batch):
         index = calls[0]
         calls[0] += 1
-        images = seam(place, "step.to_card" if card else "step.to_host", images=images)
-        labels = torch.as_tensor(labels).long().to(dev)
-        batch = images.shape[0]
-        slices = cluster.microbatch_slices(batch)
-        for sl in slices:
-            _warm(sl.stop - sl.start, params)
         masks = _masks(batch, index)
-
         db = [None] * len(convs)  # conv bias grads, summed over microbatches
-        head_grad = [None]        # dense param grads, ditto
 
         def make_between(k):
             layer, bias = convs[k], params[convs[k].name]["bias"]
@@ -370,43 +445,26 @@ def make_cluster_train_step(cluster, cfg, *, lr: float = 0.05, device="cuda",
                 def pull(gz):
                     gy, gb = _stage_bwd(y, bias, layer, seam(dev, "step.to_card", gz=gz))
                     db[k] = gb if db[k] is None else db[k] + gb
-                    return _out("step.to_host", gy=gy)
+                    return handoff(place, "step.to_host", gy=gy)
 
-                return _out("step.to_host", z=z), pull
+                return handoff(place, "step.to_host", z=z), pull
             return f
 
-        def head(z, i):
-            sl = slices[i]
-            zt = seam(dev, "step.to_card", z=z)
-            with spans.span("step.head", z.nbytes, rows=sl.stop - sl.start,
-                            layers=len(dense)):
-                loss_i, correct_i, gz, g = _head_both(
-                    zt, params, labels[sl], [None if m is None else m[sl] for m in masks],
-                    float(batch))
-                drain(gz)
-            head_grad[0] = g if head_grad[0] is None else {
-                n: {k: head_grad[0][n][k] + v for k, v in d.items()} for n, d in g.items()}
-            return (float(loss_i), float(correct_i)), seam(place, "step.to_host", gz=gz)
+        def head(z, labels, sl, denom):
+            return _head_both(z, params, labels,
+                              [None if m is None else m[sl] for m in masks], denom)
 
-        between = [make_between(k) for k in range(len(convs))]
-        kernels = [seam(place, "step.kernels_to_host", w=params[c.name]["kernel"])
-                   for c in convs]
-        new_kernels, res = cluster.conv_train_step(
-            images, kernels, between, head,
-            update=lambda w, dw: w - lr * dw,
-        )
+        def finish(kernels, head_grad):
+            new_params = {}
+            for k, c in enumerate(convs):
+                new_params[c.name] = {"kernel": kernels[k],
+                                      "bias": params[c.name]["bias"] - lr * db[k]}
+            for d in dense:
+                new_params[d.name] = {k: params[d.name][k] - lr * head_grad[d.name][k]
+                                      for k in params[d.name]}
+            return new_params
 
-        loss = float(sum(a[0] for a in res.head_aux))
-        acc = float(sum(a[1] for a in res.head_aux)) / batch
-        new_params = {}
-        for k, c in enumerate(convs):
-            new_params[c.name] = {
-                "kernel": seam(dev, "step.kernels_to_card", w=new_kernels[k]),
-                "bias": params[c.name]["bias"] - lr * db[k],
-            }
-        for d in dense:
-            new_params[d.name] = {k: params[d.name][k] - lr * head_grad[0][d.name][k]
-                                  for k in params[d.name]}
-        return new_params, loss, acc
+        return StepPlan([make_between(k) for k in range(len(convs))], head, finish)
 
-    return step
+    return cluster_train_step(cluster, dev, lr=lr, kernel_names=[c.name for c in convs],
+                              head_layers=len(dense), warm=_warm, begin=_begin)

@@ -60,6 +60,14 @@ SHAPES = [
     (2, 8, 8, 6, 21, 5),         # Cout not a multiple of the tile
     (4, 32, 32, 3, 500, 5),      # C1 at full width
     (4, 16, 16, 500, 1500, 5),   # C2 at full width
+] + [
+    # ResNet-50's convs on a microbatch of 32 (models/resnet.py runs each
+    # at stride 1): conv1 7x7 over Cin 3 at 224x224; 1x1 convs of every
+    # stage, Cin 64 to 2048, Cout 64 to 2048 (a projection, a 2a, a 2c,
+    # conv3_1's subsampled 2a); conv5_x's 3x3 at 7x7
+    (32, 224, 224, 3, 64, 7), (32, 56, 56, 64, 256, 1), (32, 56, 56, 256, 64, 1),
+    (32, 28, 28, 256, 128, 1), (32, 14, 14, 1024, 256, 1), (32, 7, 7, 512, 2048, 1),
+    (32, 7, 7, 2048, 512, 1), (32, 7, 7, 1024, 2048, 1), (32, 7, 7, 512, 512, 3),
 ]
 # the backward's extra cases: a 7-row strip, ragged Cout, no pixels
 BWD_SHAPES = SHAPES + [

@@ -55,6 +55,10 @@ SHAPES = [
     (2, 8, 8, 4, 0, 3),      # a device allocated 0 kernels by Eq. 1
     (2, 1, 8, 4, 8, 5),      # a one-row strip
     (2, 8, 8, 6, 21, 5),     # Cout not a multiple of 16
+    (1, 4, 4, 64, 256, 1),   # ResNet-50's 1x1 convs: a projection, a 2c
+    (1, 4, 4, 256, 64, 1),   # a 2a
+    (1, 2, 2, 256, 2048, 1),  # Cout 2048, as conv5_x's 2c
+    (1, 16, 16, 3, 64, 7),   # its conv1: 7x7 over Cin 3
 ]
 # the wrappers' empty cases besides Cout 0: no pixels (a zero-row batch
 # shard, whose dW is zeros of the full shape) and no input channels
@@ -146,6 +150,17 @@ def test_bwd_wrappers_on_cpu_are_the_plain_versions(b, h, w, cin, cout, k):
         assert dw.shape == (k, k, cin, cout) and dw.numel() > 0
 
 
+# ResNet-50's convs on a microbatch of 32 (models/resnet.py runs every
+# conv at stride 1): conv1 7x7 over Cin 3 at 224x224; the 1x1 convs of
+# each stage (a projection, a 2a, a 2c, the subsampled 2a of conv3_1),
+# Cin 64 to 2048 and Cout 64 to 2048; conv5_x's 3x3 at 7x7
+RESNET_SHAPES = [
+    (32, 224, 224, 3, 64, 7), (32, 56, 56, 64, 256, 1), (32, 56, 56, 256, 64, 1),
+    (32, 28, 28, 256, 128, 1), (32, 14, 14, 1024, 256, 1), (32, 7, 7, 512, 2048, 1),
+    (32, 7, 7, 2048, 512, 1), (32, 7, 7, 1024, 2048, 1), (32, 7, 7, 512, 512, 3),
+]
+
+
 # K3's and K1's plans: the test sweep, C1 and C2 at batch 32 and 4
 # (chip_smoke.py's kernel phases), the serving and training paths' C1
 # and C2 shards (Cout 363 and 459 are not multiples of 4), a 7-row strip
@@ -158,7 +173,7 @@ CONV_PLAN_CASES = [
         (4, 32, 32, 3, 165, 5), (4, 16, 16, 500, 449, 5),
         (8, 32, 32, 3, 175, 5), (8, 16, 16, 500, 459, 5), (8, 16, 16, 500, 363, 5),
         (8, 7, 16, 500, 437, 5), (1, 1, 8, 4, 8, 5), (1, 4, 4, 40, 1500, 5),
-    ]
+    ] + RESNET_SHAPES
     for itemsize in (4, 2)
 ]
 
@@ -274,7 +289,7 @@ DX_PLAN_CASES = [
         (32, 32, 32, 3, 500, 5), (32, 16, 16, 500, 1500, 5),
         (8, 32, 32, 3, 167, 5), (8, 16, 16, 500, 500, 5),
         (8, 7, 16, 500, 1500, 5), (1, 4, 4, 65, 9, 7),
-    ] + [(2, 8, 8, cin, 12, 5) for cin in (1, 4, 5, 9, 16, 17, 64, 65)]
+    ] + [(2, 8, 8, cin, 12, 5) for cin in (1, 4, 5, 9, 16, 17, 64, 65)] + RESNET_SHAPES
     for itemsize in (4, 2)
 ]
 
